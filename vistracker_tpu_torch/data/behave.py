@@ -1,0 +1,134 @@
+"""BEHAVE sequence access (port of the readers in vistracker_tpu/data/behave.py).
+
+A sequence folder holds info.json and per-frame folders tXXXX.XXX with
+k{kid}.color.jpg, person/object masks, k{kid}.color.json (OpenPose) and
+k{kid}.mocap.json (FrankMocap). PIL is imported only when an image is
+read. `MemoryFrameReader` serves the same interface from arrays held in
+memory, for callers that have frames but no files.
+"""
+from __future__ import annotations
+
+import json
+import os.path as osp
+from glob import glob
+
+import numpy as np
+
+
+class SeqInfo:
+    """Sequence metadata (the contents of info.json)."""
+
+    def __init__(self, info: dict):
+        self.info = info
+
+    def get_gender(self) -> str:
+        return self.info["gender"]
+
+
+def _clean_kpts(arr: np.ndarray, tol: float) -> np.ndarray:
+    arr = np.asarray(arr, np.float32).reshape(-1, 3)[:25].copy()
+    arr[arr[:, 2] < tol] = 0.0
+    return arr
+
+
+class FrameDataReader:
+    """Per-frame file access for one sequence folder."""
+
+    def __init__(self, seq: str):
+        self.seq_path = seq
+        self.seq_name = osp.basename(seq.rstrip("/"))
+        self.frames = sorted(
+            osp.basename(d.rstrip("/")) for d in glob(osp.join(seq, "*/"))
+            if osp.basename(d.rstrip("/")).startswith("t"))
+        self.seq_info = None
+        if osp.isfile(osp.join(seq, "info.json")):
+            with open(osp.join(seq, "info.json")) as f:
+                self.seq_info = SeqInfo(json.load(f))
+
+    def __len__(self):
+        return len(self.frames)
+
+    def cvt_end(self, end):
+        return len(self.frames) if end is None else min(end, len(self.frames))
+
+    def get_frame_folder(self, idx: int) -> str:
+        return osp.join(self.seq_path, self.frames[idx])
+
+    def get_mask_file(self, idx: int, kid: int, cat: str = "person") -> str:
+        folder = self.get_frame_folder(idx)
+        names = {
+            "person": [f"k{kid}.person_mask.png", f"k{kid}.person_mask.jpg"],
+            "obj": [f"k{kid}.obj_rend_mask.png", f"k{kid}.obj_rend_mask.jpg",
+                    f"k{kid}.obj_mask.png", f"k{kid}.obj_mask.jpg"],
+        }[cat]
+        for n in names:
+            p = osp.join(folder, n)
+            if osp.isfile(p):
+                return p
+        raise FileNotFoundError(f"no {cat} mask in {folder}")
+
+    def get_mask(self, idx: int, kid: int, cat: str = "person") -> np.ndarray:
+        from PIL import Image
+        img = Image.open(self.get_mask_file(idx, kid, cat)).convert("L")
+        return np.asarray(img) > 127
+
+    def get_color(self, idx: int, kid: int) -> np.ndarray:
+        from PIL import Image
+        path = osp.join(self.get_frame_folder(idx), f"k{kid}.color.jpg")
+        return np.asarray(Image.open(path).convert("RGB"))
+
+    def get_body_kpts(self, idx: int, kid: int, tol: float = 0.5):
+        """OpenPose body25 keypoints (25, 3); low-confidence rows zeroed."""
+        path = osp.join(self.get_frame_folder(idx), f"k{kid}.color.json")
+        with open(path) as f:
+            data = json.load(f)
+        if "body_joints" in data:
+            return _clean_kpts(data["body_joints"], tol)
+        people = data.get("people", [])
+        if not people:
+            return np.zeros((25, 3), np.float32)
+        return _clean_kpts(people[0]["pose_keypoints_2d"], tol)
+
+    def get_mocap_params(self, idx: int, kid: int):
+        """FrankMocap init pose (72,) + betas (10,)."""
+        path = osp.join(self.get_frame_folder(idx), f"k{kid}.mocap.json")
+        with open(path) as f:
+            data = json.load(f)
+        return (np.asarray(data["pose"], np.float32).reshape(-1),
+                np.asarray(data["betas"], np.float32).reshape(-1))
+
+
+class MemoryFrameReader:
+    """FrameDataReader interface over in-memory frames of one kinect:
+    color (T, H, W, 3) uint8, person/obj masks (T, H, W) bool, kpts
+    (T, 25, 3) pixel x, y, confidence, mocap poses (T, 72) and betas
+    (T, 10); info is the sequence's info.json content. Frames are named
+    t0000.000, t0001.000, ..."""
+
+    def __init__(self, seq_name: str, info: dict, color, person_mask,
+                 obj_mask, kpts, mocap_pose, mocap_betas):
+        self.seq_name = seq_name
+        self.seq_info = SeqInfo(info)
+        self.color, self.kpts = color, kpts
+        self.masks = {"person": person_mask, "obj": obj_mask}
+        self.mocap = (mocap_pose, mocap_betas)
+        self.frames = [f"t{i:04d}.000" for i in range(len(color))]
+
+    def __len__(self):
+        return len(self.frames)
+
+    def cvt_end(self, end):
+        return len(self.frames) if end is None else min(end, len(self.frames))
+
+    def get_mask(self, idx: int, kid: int, cat: str = "person"):
+        return np.asarray(self.masks[cat][idx], bool)
+
+    def get_color(self, idx: int, kid: int) -> np.ndarray:
+        return np.asarray(self.color[idx])
+
+    def get_body_kpts(self, idx: int, kid: int, tol: float = 0.5):
+        return _clean_kpts(self.kpts[idx], tol)
+
+    def get_mocap_params(self, idx: int, kid: int):
+        return (np.asarray(self.mocap[0][idx], np.float32).reshape(-1),
+                np.asarray(self.mocap[1][idx], np.float32).reshape(-1))

@@ -1,0 +1,141 @@
+"""Weights for the port's SIF-Net: seeded random init, released torch
+checkpoints, and weights carried over from the JAX package's flax params.
+
+The port's modules use the reference's parameter names, so a released
+tri-vis-l2 tar loads with load_state_dict after its "module." prefixes
+are stripped. `sifnet_state_dict_from_flax` converts the JAX package's
+flax params (numpy arrays) into the same state_dict, which is how the
+tests hold the two packages to the same weights. Layouts:
+  flax Conv kernel (kh, kw, in, out)  -> torch Conv2d (out, in, kh, kw)
+  flax Dense kernel (in, out)         -> torch Conv1d k=1 (out, in, 1)
+  flax GroupNorm scale / bias         -> torch weight / bias
+"""
+from __future__ import annotations
+
+import glob
+import json
+import math
+import os
+
+import numpy as np
+import torch
+from torch import nn
+
+from .sifnet import SIFNet, SIFNetConfig
+
+
+def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-initialize every parameter from `generator` (a CPU generator):
+    convs uniform in +-1/sqrt(fan_in) (PyTorch's default bound), norms
+    weight 1 and bias 0. Deterministic for a given seed on any device."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (nn.Conv1d, nn.Conv2d)):
+                bound = 1.0 / math.sqrt(mod.weight[0].numel())
+                for p in (mod.weight, mod.bias):
+                    if p is not None:
+                        u = torch.rand(p.shape, generator=generator)
+                        p.copy_(u * (2 * bound) - bound)
+            elif isinstance(mod, nn.GroupNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.fill_(0.0)
+    return model
+
+
+def _flax_path(module_path: str) -> list:
+    """Torch module path -> flax module path: downsample.0 is the block's
+    bn4, downsample.2 its downsample_conv; head layer k is fc{k//2}."""
+    parts, out, i = module_path.split("."), [], 0
+    while i < len(parts):
+        name = parts[i]
+        if name == "downsample":
+            out.append("bn4" if parts[i + 1] == "0" else "downsample_conv")
+            i += 2
+        elif i + 1 < len(parts) and parts[i + 1].isdigit():
+            out += [name, f"fc{int(parts[i + 1]) // 2}"]
+            i += 2
+        else:
+            out.append(name)
+            i += 1
+    return out
+
+
+def sifnet_state_dict_from_flax(params: dict, cfg: SIFNetConfig) -> dict:
+    """The JAX package's flax SIF-Net params ({"params": ...} or the inner
+    tree; arrays as numpy) -> the port's state_dict (CPU float32)."""
+    tree = params.get("params", params)
+    model = SIFNet(cfg)
+    modules = dict(model.named_modules(remove_duplicate=False))
+    sd = {}
+    for key in model.state_dict():
+        mod_path, leaf = key.rsplit(".", 1)
+        mod = modules[mod_path]
+        node = tree
+        for name in _flax_path(mod_path):
+            node = node[name]
+        if isinstance(mod, nn.GroupNorm):
+            w = node["scale" if leaf == "weight" else "bias"]
+        elif leaf == "bias":
+            w = node["bias"]
+        elif isinstance(mod, nn.Conv2d):
+            w = np.transpose(np.asarray(node["kernel"]), (3, 2, 0, 1))
+        else:  # Conv1d head layer from a Dense kernel
+            w = np.asarray(node["kernel"]).T[..., None]
+        sd[key] = torch.from_numpy(np.array(w, np.float32))
+    return sd
+
+
+def is_torch_experiment_dir(path: str) -> bool:
+    """Does `path` hold released torch checkpoint artifacts?"""
+    return bool(
+        glob.glob(os.path.join(path, "val_min=*"))
+        or glob.glob(os.path.join(path, "checkpoints", "*.tar"))
+        or os.path.isfile(os.path.join(path, "checkpoint.pth.tar")))
+
+
+def find_checkpoint(exp_dir: str) -> str:
+    """Resolve a file or experiment folder to a checkpoint file with the
+    reference's precedence: val_min=<epoch>.npy, best_model.json, the
+    checkpoints/*.tar with the largest training-time suffix, then
+    checkpoint.pth.tar."""
+    if os.path.isfile(exp_dir):
+        return exp_dir
+    ck_dir = os.path.join(exp_dir, "checkpoints")
+    for vm in sorted(glob.glob(os.path.join(exp_dir, "val_min=*"))):
+        log = np.load(vm, allow_pickle=True)
+        path = os.path.join(ck_dir, str(log[2]))
+        if os.path.isfile(path):
+            return path
+    bm = os.path.join(exp_dir, "best_model.json")
+    if os.path.isfile(bm):
+        with open(bm, encoding="utf-8") as f:
+            ck = json.load(f).get("ck_file")
+        if ck and os.path.isfile(os.path.join(ck_dir, ck)):
+            return os.path.join(ck_dir, ck)
+    tars = glob.glob(os.path.join(ck_dir, "*.tar"))
+    if tars:
+        def ttime(p):
+            try:
+                return float(os.path.splitext(os.path.basename(p))[0]
+                             .split("_")[-1])
+            except ValueError:
+                return -1.0
+        return max(tars, key=ttime)
+    sn = os.path.join(exp_dir, "checkpoint.pth.tar")
+    if os.path.isfile(sn):
+        return sn
+    raise FileNotFoundError(f"no torch checkpoint found under {exp_dir}")
+
+
+def load_checkpoint_state_dict(path: str) -> dict:
+    """Checkpoint file or experiment folder -> state_dict with "module."
+    prefixes stripped (model_state_dict / state_dict / model containers)."""
+    ck = torch.load(find_checkpoint(path), map_location="cpu",
+                    weights_only=False)
+    sd = ck
+    for key in ("model_state_dict", "state_dict", "model"):
+        if isinstance(ck, dict) and key in ck:
+            sd = ck[key]
+            break
+    return {k[len("module."):] if k.startswith("module.") else k: v
+            for k, v in sd.items()}

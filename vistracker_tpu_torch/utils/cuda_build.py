@@ -1,0 +1,67 @@
+"""Build the hand-written CUDA kernels with nvcc and load them with ctypes.
+
+Each source under vistracker_tpu_torch/csrc/ is compiled on first use into
+a shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/kernels/lib<name>_<hash>.so csrc/<name>.cu
+
+The library lands in build/kernels/ at the root of the checkout; its name
+carries a hash of the source and flags, so an edited source is rebuilt.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from csrc/ at first use")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
+
+
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu unless its library exists; returns the nvcc
+    log (ptxas register and shared-memory lines), "" if already built."""
+    out = _lib_path(name)
+    if out.is_file():
+        return ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{proc.stdout}")
+    os.replace(tmp, out)
+    return proc.stdout
+
+
+@functools.cache
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/<name>.cu as a ctypes library."""
+    build(name)
+    return ctypes.CDLL(str(_lib_path(name)))
