@@ -1,27 +1,40 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--frames 8 [16 32 ...]]
+    python3 chip_smoke.py [--frames 32 [96 ...]] [--chunk 16] [--kernels-only]
 
 Phases (any failure exits non-zero):
-  1. build the hand-written kernel from vistracker_tpu_torch/csrc with
-     nvcc; print the card;
+  1. build the hand-written kernels from vistracker_tpu_torch/csrc with
+     nvcc (one process per source, started together); print the card;
   2. kernel K1 (csrc/max_logit_fwd.cu) against its plain PyTorch version
-     at the stage-3 shape -- 8 frames x 3 triplane views of a 13,776-face
-     SMPL-sized closed mesh at 512^2 -- and at 32..256 px (each
+     at the stage-3 shape -- a chunk's 16 frames x 3 triplane views of a
+     13,776-face SMPL-sized closed mesh at 512^2 -- and at 32..256 px (each
      pixels-per-thread instance), requiring m and cnt bit-equal; kernel,
      plain and bound times;
-  3. the neural-only slice at a small size on the CPU and on the card,
-     same inputs and seeds, with a surface threshold wide enough that the
-     untrained net keeps surface points: the packed outputs, non-zero,
-     must agree;
-  4. the main path: `track --neural-only` through the port's entry point
-     on an 8-frame BEHAVE-layout sequence held in memory (2048x1536
-     frames, a 6890-vertex SMPL-H model), release SIF-Net (random weights
-     from a seed), full stage-1 budget and funnel harvest, on the card,
-     with every kernel's launch count set to 0 before and read after;
-     each further --frames value runs it again with that many frames in
-     one chunk, to read per-stage peak device memory against chunk size;
-  5. a {"kernels": [...]} line, the nvidia-smi name/power-limit line and,
+  3. K1 in its soft-silhouette use and kernel K2 (csrc/max_logit_bwd.cu)
+     at the stage-6 shape -- 16 views of a 2,500-face decimated closed
+     mesh at 256^2, sigma 1/128: m and cnt bit-equal to the plain
+     version, the plane cotangent within a stated tolerance of
+     max_logit_bwd_plain and exactly 0 on dead rows;
+  4. kernel K3 (csrc/label_nn.cu) at (16, 6890, 3) vs (16, 3000, 3), 14
+     labels, partial validity, both directions, requiring min and argmin
+     bit-equal to label_nn_plain, rows without a compatible point
+     included; the scatter of its gradient twice, for run-to-run equality;
+  5. the whole `track` at a small size on the CPU and on the card, same
+     inputs and seeds, with a surface threshold wide enough that the
+     untrained net keeps surface points: the packed outputs must agree;
+  6. the infiller's clip schedule (seed clip, full clips, truncated tail)
+     on a synthetic 215-frame stream, card against CPU;
+  7. the main path: the whole `track` through the port's entry point on a
+     32-frame BEHAVE-layout sequence held in memory (2048x1536 frames, a
+     6890-vertex SMPL-H model, a 2,520-face object template read from a
+     .ply), two chunks of 16, release SIF-Net, SmoothNets and HVOP-Net
+     with random weights from a seed, full budgets of every stage, on the
+     card, with every kernel's launch count set to 0 before and read
+     after; visibility, the silhouette phase's first gradient and the
+     object translation's movement must be non-zero, the object rotations
+     proper. Each further --frames value runs it again with that many
+     frames in one chunk, to read per-stage peak device memory;
+  8. a {"kernels": [...]} line, the nvidia-smi name/power-limit line and,
      last, {"ok": true, "device": {...}}.
 Scratch files go to build/chip_smoke/ next to this script. Imports no JAX.
 """
@@ -45,6 +58,13 @@ H100_FP32_OPS = 67e12      # CUDA-core fp32, H100 SXM data sheet
 H100_BYTES = 3.35e12       # HBM3, H100 SXM data sheet
 K1_OPS_PER_PIXEL_FACE = 15  # 5 planes x 1 FMA (2 flops) + 4 min + 1 cmp
 K1_OPS_PER_ROW_FACE = 10    # the row terms b*py + c: 5 FMAs
+# K2 recomputes K1's planes and compares with the saved max (winners are
+# one or two faces a pixel: their few extra operations are not counted)
+K2_OPS_PER_PIXEL_FACE = 15
+# x.y 5, distance 3, mask 2, running min 2; the clamp at 0 is not counted
+# (apart from the order of ties at 0 it could follow the min)
+K3_OPS_PER_PAIR = 12
+KERNEL_SOURCES = ("max_logit_fwd", "max_logit_bwd", "label_nn")
 
 
 def sphere_mesh(rings: int, segments: int, radius: float = 0.4):
@@ -67,6 +87,28 @@ def sphere_mesh(rings: int, segments: int, radius: float = 0.4):
     last = len(verts) - 1
     faces.append(np.stack([np.full(segments, last), idx[-1], nxt[-1]], -1))
     return verts.astype(np.float32), np.concatenate(faces).astype(np.int32)
+
+
+def host_ms(fn) -> float:
+    """One call on the host clock, synchronized (for the plain versions)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time the card could take: operations over the fp32 peak
+    or bytes over the memory rate, whichever is larger."""
+    t_ops, t_bytes = ops / H100_FP32_OPS * 1e3, nbytes / H100_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -119,7 +161,7 @@ def k1_equal(cpl, active, size) -> float:
                                (c_k - c_p).abs().max()))
 
 
-def check_k1(device, frames=8, size=512):
+def check_k1(device, frames=16, size=512):
     """K1 against its plain version at the stage-3 shape, and at the sizes
     that use the kernel's other pixels-per-thread instances; returns the
     kernel's record for the {"kernels": ...} line (without launches)."""
@@ -134,35 +176,188 @@ def check_k1(device, frames=8, size=512):
     cpl, active, B, n_faces = k1_inputs(device, frames, size)
     err = k1_equal(cpl, active, size)
     ms = cuda_ms(lambda: max_logit_fwd(cpl, active, size), 20)
-    t0 = time.perf_counter()
-    max_logit_fwd_plain(cpl, active, size)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_ms = host_ms(lambda: max_logit_fwd_plain(cpl, active, size))
     live = int(active.sum())
     ops = live * _FBLK * _RBLK * (_xblk(size) * K1_OPS_PER_PIXEL_FACE
                                   + K1_OPS_PER_ROW_FACE)
-    nbytes = (cpl.numel() * 4 + active.numel() * 4 + 2 * B * size * size * 4)
-    t_ops, t_bytes = ops / H100_FP32_OPS * 1e3, nbytes / H100_BYTES * 1e3
+    bnd = bound(ops, nbytes(cpl, active) + 2 * B * size * size * 4)
     print(f"K1 at {B} views x {n_faces} faces x {size}^2: kernel "
           f"{ms:.4f} ms, plain {plain_ms:.1f} ms, live cells {live} of "
-          f"{active.numel()}, bound {max(t_ops, t_bytes):.4f} ms "
-          f"({'operations' if t_ops >= t_bytes else 'bytes'}; ops "
-          f"{t_ops:.4f} ms, bytes {t_bytes:.4f} ms), m and cnt bit-equal")
+          f"{active.numel()}, bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']}), m and cnt bit-equal")
     return {"name": "max_logit_fwd", "route": "cuda",
             "source": "vistracker_tpu_torch/csrc/max_logit_fwd.cu",
             "replaces": "vistracker_tpu/ops/pallas_raster.py:140",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
             "library_ms": None}
 
 
-def fabricate(tag: str, frames: int, rings: int, segments: int, seed=0):
+def object_mesh(rings=35, segments=36):
+    """The object template: a closed ellipsoid with half-axes 15, 10 and
+    6 cm, so that its rotation shows in the silhouette and the df terms;
+    2,520 faces on the main path (decimate_faces cuts them to 2,500 for
+    the silhouette)."""
+    verts, faces = sphere_mesh(rings, segments, 1.0)
+    return verts * np.array([0.15, 0.10, 0.06], np.float32), faces
+
+
+def check_sil(device, views=16, size=256, sigma=1.0 / 128.0, seed=1):
+    """K1 (soft-silhouette use) and K2 against their plain versions at the
+    stage-6 shape. Returns the two kernel records."""
+    import torch
+    from vistracker_tpu_torch.ops.coverage import (
+        _FBLK, _RBLK, _planes, _strip_active, _xblk, max_logit_bwd,
+        max_logit_bwd_plain, max_logit_fwd, max_logit_fwd_plain)
+    from vistracker_tpu_torch.utils.mesh import decimate_faces
+
+    rng = np.random.RandomState(seed)
+    ov, of = object_mesh()
+    faces = decimate_faces(of, 2500)
+    # the object seen in its ROI square: ~3/4 of the side, jittered
+    v2d = (ov[None, :, :2] / 0.15 * (0.7 + 0.1 * rng.rand(views, 1, 1))
+           + 0.1 * rng.randn(views, 1, 2))
+    v2d = torch.as_tensor(v2d, dtype=torch.float32, device=device)
+    cpl = _planes(v2d, torch.as_tensor(faces, device=device)).contiguous()
+    active = _strip_active(cpl, size, sigma)
+    n_faces, Fp = faces.shape[0], cpl.shape[1]
+    m_k, c_k = max_logit_fwd(cpl, active, size)
+    m_p, c_p = max_logit_fwd_plain(cpl, active, size)
+    torch.cuda.synchronize()
+    if not (torch.equal(m_k, m_p) and torch.equal(c_k, c_p)):
+        raise SystemExit("K1 (soft) kernel != plain version at "
+                         f"{int((m_k != m_p).sum() + (c_k != c_p).sum())} "
+                         "values")
+    # a cotangent as the silhouette loss gives it: a residual times the
+    # sigmoid's p (1 - p) / sigma, split among the faces tied at the max
+    prob = torch.sigmoid(m_k / sigma)
+    g = torch.as_tensor(rng.randn(views, size, size), dtype=torch.float32,
+                        device=device) * prob * (1 - prob) / sigma
+    gw = (g / torch.clamp(c_k, min=1.0)).contiguous()
+    dc_k = max_logit_bwd(cpl, active, m_k, gw, size)
+    dc_p = max_logit_bwd_plain(cpl, active, m_k, gw, size)
+    torch.cuda.synchronize()
+    # the two sum a face's pixels in another order (kernel: pixels of a
+    # row, rows, strips in sequence; plain: torch's tree reductions), so
+    # they agree to float32 summation error: 1e-5 of the largest entry
+    scale = float(dc_p.abs().max())
+    err = float((dc_k - dc_p).abs().max())
+    dead = float(dc_k[:, n_faces:].abs().max()) if Fp > n_faces else 0.0
+    if not (scale > 0 and np.isfinite(err) and err <= 1e-5 * scale
+            and dead == 0.0):
+        raise SystemExit(f"K2 kernel vs plain: max |diff| {err:.3e} against "
+                         f"max |dc| {scale:.3e} (limit 1e-5 of it), dead "
+                         f"rows max {dead}")
+    live = int(active.sum())
+    ops_cell = _FBLK * _RBLK * (_xblk(size) * K1_OPS_PER_PIXEL_FACE
+                                + K1_OPS_PER_ROW_FACE)
+    img = views * size * size * 4
+    fwd = {"ms": cuda_ms(lambda: max_logit_fwd(cpl, active, size), 20),
+           "plain_ms": host_ms(lambda: max_logit_fwd_plain(cpl, active,
+                                                           size)),
+           **bound(live * ops_cell, nbytes(cpl, active) + 2 * img)}
+    bwd = {"ms": cuda_ms(lambda: max_logit_bwd(cpl, active, m_k, gw, size),
+                         20),
+           "plain_ms": host_ms(lambda: max_logit_bwd_plain(cpl, active, m_k,
+                                                           gw, size)),
+           **bound(live * _FBLK * _RBLK
+                   * (_xblk(size) * K2_OPS_PER_PIXEL_FACE
+                      + K1_OPS_PER_ROW_FACE),
+                   2 * nbytes(cpl) + nbytes(active) + 2 * img)}
+    print(f"K1 soft + K2 at {views} views x {n_faces} faces (padded {Fp}) x "
+          f"{size}^2, sigma {sigma:.5f}: live cells {live} of "
+          f"{active.numel()}; forward {fwd['ms']:.4f} ms (plain "
+          f"{fwd['plain_ms']:.1f} ms, bound {fwd['bound_ms']:.4f} ms by "
+          f"{fwd['bound_by']}), m and cnt bit-equal; backward "
+          f"{bwd['ms']:.4f} ms (plain {bwd['plain_ms']:.1f} ms, bound "
+          f"{bwd['bound_ms']:.4f} ms by {bwd['bound_by']}), max |diff| "
+          f"{err:.3e} of max |dc| {scale:.3e}, dead rows 0")
+    common = {"route": "cuda", "library_ms": None}
+    return [{"name": "max_logit_fwd_soft",
+             "source": "vistracker_tpu_torch/csrc/max_logit_fwd.cu",
+             "replaces": "vistracker_tpu/ops/pallas_raster.py:140 via "
+                         "soft_silhouette_batch :309",
+             "max_abs_err": 0.0, **fwd, **common},
+            {"name": "max_logit_bwd",
+             "source": "vistracker_tpu_torch/csrc/max_logit_bwd.cu",
+             "replaces": "vistracker_tpu/ops/pallas_raster.py:167",
+             "max_abs_err": err, **bwd, **common}]
+
+
+def check_k3(device, B=16, N=6890, M=3000, seed=2):
+    """K3 against label_nn_plain in both directions of the contact loss
+    (SMPL vertices vs object points and back), with partial validity and
+    rows without a compatible point; the gradient's scatter twice. No
+    library time: no single PyTorch call computes it (torch.cdist has no
+    label mask and no argmin under a mask)."""
+    import torch
+    from vistracker_tpu_torch.ops.label_nn import (label_nn, label_nn_fwd,
+                                                   label_nn_plain)
+
+    rng = np.random.RandomState(seed)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    xh = t(rng.randn(B, N, 3) * 0.3 + [0, 0, 2.2])
+    xo = t(rng.randn(B, M, 3) * 0.15 + [0.2, 0, 2.2])
+    lh = t(rng.randint(0, 14, (B, N)), torch.int64)
+    lo = t(rng.randint(0, 10, (B, M)), torch.int64)  # parts 10..13 absent
+    mh = t(rng.rand(B, N) < 0.3, torch.bool)
+    mo = t(rng.rand(B, M) < 0.3, torch.bool)
+    mo[0] = False                                    # a frame with no contact
+    err, none_rows, times = 0.0, 0, {"ms": 0.0, "plain_ms": 0.0}
+    for x, lx, y, ly, valid in ((xh, lh, xo, lo, mo), (xo, lo, xh, lh, mh)):
+        d_k, i_k = label_nn_fwd(x, lx, y, ly, valid)
+        d_p, i_p = label_nn_plain(x, lx, y, ly, valid)
+        torch.cuda.synchronize()
+        if not (torch.equal(d_k, d_p) and torch.equal(i_k, i_p)):
+            raise SystemExit(
+                f"K3 kernel != plain version: {int((d_k != d_p).sum())} "
+                f"distances, {int((i_k != i_p).sum())} indices of "
+                f"{d_k.numel()}")
+        err = max(err, float((d_k - d_p).abs().max()))
+        none_rows += int((d_k >= 1e10).sum())
+        times["ms"] += cuda_ms(lambda: label_nn_fwd(x, lx, y, ly, valid), 20)
+        times["plain_ms"] += host_ms(
+            lambda: label_nn_plain(x, lx, y, ly, valid))
+    if none_rows == 0:
+        raise SystemExit("K3 check: no row without a compatible point")
+    # the object side's gradient, as the joint phase takes it: the scatter
+    # onto y must give the same bits on every run
+    grads = []
+    for _ in range(2):
+        yo = xo.clone().requires_grad_(True)
+        d = label_nn(xh, lh, yo, lo, mo)
+        (d * (d < 1e9)).sum().backward()
+        grads.append(yo.grad)
+    rerun = float((grads[0] - grads[1]).abs().max())
+    if rerun != 0.0 or not float(grads[0].abs().max()) > 0:
+        raise SystemExit(f"K3 gradient scatter: run-to-run max |diff| "
+                         f"{rerun}, max |grad| {float(grads[0].abs().max())}")
+    bnd = bound(2 * B * N * M * K3_OPS_PER_PAIR,
+                2 * nbytes(xh, xo, lh.int(), lo.int())
+                + nbytes(mh, mo) + 8 * B * (N + M))
+    print(f"K3 at ({B}, {N}, 3) vs ({B}, {M}, 3), 14 labels, both "
+          f"directions: kernel {times['ms']:.4f} ms, plain "
+          f"{times['plain_ms']:.1f} ms, bound {bnd['bound_ms']:.4f} ms by "
+          f"{bnd['bound_by']}; min and argmin bit-equal, {none_rows} rows "
+          f"without a compatible point; gradient scatter run-to-run "
+          f"max |diff| {rerun}")
+    return {"name": "label_nn", "route": "cuda",
+            "source": "vistracker_tpu_torch/csrc/label_nn.cu",
+            "replaces": "vistracker_tpu/ops/pallas_nn.py:90",
+            "max_abs_err": err, **times, **bnd, "library_ms": None}
+
+
+def fabricate(tag: str, frames: int, rings: int, segments: int, seed=0,
+              obj=(35, 36)):
     """An in-memory BEHAVE-layout sequence (MemoryFrameReader) plus a
-    synthetic SMPL-H pkl and assets on disk under build/chip_smoke/<tag>;
-    returns (reader, smpl_pkl, assets)."""
+    synthetic SMPL-H pkl, assets and an object template folder on disk
+    under build/chip_smoke/<tag>; returns (reader, smpl_pkl, assets,
+    objects_root)."""
     from vistracker_tpu_torch.core.smpl import SMPLH_PARENTS
     from vistracker_tpu_torch.data.behave import MemoryFrameReader
+    from vistracker_tpu_torch.utils.mesh import save_ply
 
     rng = np.random.RandomState(seed)
     root = os.path.join(WORK, tag)
@@ -199,14 +394,19 @@ def fabricate(tag: str, frames: int, rings: int, segments: int, seed=0):
         with open(os.path.join(assets, "priors", name), "wb") as f:
             pickle.dump(dict(mean=np.zeros(d), precision=np.eye(d) * 0.1), f)
 
+    objects = os.path.join(root, "objects")
+    os.makedirs(os.path.join(objects, "boxsmall"), exist_ok=True)
+    save_ply(os.path.join(objects, "boxsmall", "boxsmall.ply"),
+             *object_mesh(*obj))
+
     H, W = 1536, 2048
     color = rng.randint(0, 256, (frames, H, W, 3), dtype=np.uint8)
     pm = np.zeros((frames, H, W), bool)
     om = np.zeros((frames, H, W), bool)
-    for t in range(frames):  # person left of the image center, object right
-        x0 = 700 + 10 * t
+    for t in range(frames):  # the object held in front of the person
+        x0 = 700 + 4 * t
         pm[t, 300:1300, x0:x0 + 350] = True
-        om[t, 700:1100, x0 + 350:x0 + 650] = True
+        om[t, 650:950, x0 + 150:x0 + 450] = True
     kpts = np.concatenate([rng.rand(frames, 25, 1) * 350 + 700,
                            rng.rand(frames, 25, 1) * 1000 + 300,
                            np.ones((frames, 25, 1))], -1)
@@ -215,19 +415,26 @@ def fabricate(tag: str, frames: int, rings: int, segments: int, seed=0):
         color, pm, om, kpts.astype(np.float32),
         (rng.randn(frames, 72) * 0.1).astype(np.float32),
         np.zeros((frames, 10), np.float32))
-    return reader, smpl_pkl, assets
+    return reader, smpl_pkl, assets, objects
 
 
-def run_slice(reader, smpl_pkl, assets, device, out, extra=()):
+def run_track(fab, device, out, extra=(), neural_only=False):
+    """The port's `track` through its entry point on a fabricated
+    sequence; random weights for every network."""
     from vistracker_tpu_torch.cli.main import build_parser
     from vistracker_tpu_torch.cli.real_track import run_real_track
     from vistracker_tpu_torch.data.packed import load_packed
 
+    reader, smpl_pkl, assets, objects = fab
+    mode = ["--neural-only"] if neural_only else [
+        "--objects-root", objects, "--infiller-ckpt", "random",
+        "--smoothnet-smpl-ckpt", "random", "--smoothnet-objrot-ckpt",
+        "random"]
     args = build_parser().parse_args([
         "track", "--seq", reader.seq_name, "--out", out,
         "--smpl-model", smpl_pkl, "--assets", assets,
-        "--sifnet-ckpt", "random", "--neural-only", "--redo",
-        "--device", device, *extra])
+        "--sifnet-ckpt", "random", "--redo", "--device", device, *mode,
+        *extra])
     summary = run_real_track(args, reader=reader)
     return summary, load_packed(summary["packed"])
 
@@ -235,7 +442,8 @@ def run_slice(reader, smpl_pkl, assets, device, out, extra=()):
 def check_outputs(packed: dict, T: int):
     shapes = dict(poses=(T, 156), betas=(T, 10), trans=(T, 3),
                   neural_pca=(T, 3, 3), neural_trans=(T, 3),
-                  neural_visibility=(T,))
+                  neural_visibility=(T,), obj_angles=(T, 3, 3),
+                  obj_trans=(T, 3), obj_scales=(T,))
     for k, shape in shapes.items():
         v = np.asarray(packed[k])
         if v.shape != shape or not np.isfinite(v).all():
@@ -244,66 +452,258 @@ def check_outputs(packed: dict, T: int):
     vis = np.asarray(packed["neural_visibility"])
     if vis.min() < 0.0 or vis.max() > 1.0:
         raise SystemExit(f"visibility outside [0, 1]: {vis}")
+    r = np.asarray(packed["obj_angles"], np.float64)
+    ortho = np.abs(r @ r.transpose(0, 2, 1) - np.eye(3)).max()
+    det = np.abs(np.linalg.det(r) - 1.0).max()
+    if not (ortho <= 1e-4 and det <= 1e-4):
+        raise SystemExit(f"obj_angles are not proper rotations: "
+                         f"|R R^T - I| {ortho:.2e}, |det - 1| {det:.2e}")
+
+
+def wide_threshold():
+    """The untrained SIF-Net's df never drops below the release surface
+    threshold (0.004): no surface point would be kept, visibility would be
+    0 and every object and silhouette term, weighted by it, would vanish.
+    A threshold of 10 keeps surface points."""
+    from vistracker_tpu_torch.fit import generator as gen_mod
+    return mock.patch.object(gen_mod, "GeneratorConfig", functools.partial(
+        gen_mod.GeneratorConfig, filter_val=10.0))
+
+
+def angle_deg(r1, r2) -> float:
+    rel = np.asarray(r1, np.float64) @ np.asarray(r2, np.float64) \
+        .transpose(0, 2, 1)
+    cos = np.clip((np.trace(rel, axis1=1, axis2=2) - 1.0) * 0.5, -1.0, 1.0)
+    return float(np.degrees(np.arccos(cos)).max())
 
 
 def check_small_cpu_vs_card():
-    """The slice at a small size (tiny SIF-Net, 64^2 inputs, 2 frames, a
-    122-vertex mesh) on the CPU and on the card, same seeds. The untrained
-    net's df never drops below the release surface threshold (0.004), so
-    the threshold is widened to 10 here: surface points survive and the
-    neural outputs, which must be non-zero, exercise the card's
-    grid_sample, heads and masked means. Stage-1 fits agree to 1e-3 (1000
-    Adam steps; reductions run in another order on the card) and so do
-    the neural means over the 4000 kept points."""
-    from vistracker_tpu_torch.fit import generator as gen_mod
+    """The whole `track` at a small size (tiny SIF-Net, 64^2 inputs, 8
+    frames in 2 chunks, a 122-vertex SMPL mesh, a 192-face object, 32^2
+    silhouettes, short budgets in stages 1 and 6) on the CPU and on the
+    card, same seeds, surface threshold widened. The neural means agree
+    to 1e-3 (the top-k of near-tied points). An Adam step moves a
+    parameter by about lr * sign(gradient) however small the gradient,
+    so where a gradient is small against the card-vs-CPU rounding (the
+    SVD behind the object rotation, the net's query) the two runs part
+    by up to lr a step; wrong gradients would part them by steps * lr
+    (0.18 rad, 0.18 m in stage 6). The check holds the SMPL parameters
+    to 1e-3, the object translation to 5e-3 m and the object rotation to
+    1 degree."""
+    from vistracker_tpu_torch.fit import joint as joint_mod
+    from vistracker_tpu_torch.fit import smplt as smplt_mod
 
-    reader, smpl_pkl, assets = fabricate("small", 2, 12, 10)
-    extra = ("--tiny-nets", "--net-size", "64", "--chunk-size", "2")
-    wide = functools.partial(gen_mod.GeneratorConfig, filter_val=10.0)
-    with mock.patch.object(gen_mod, "GeneratorConfig", wide):
-        _, ref = run_slice(reader, smpl_pkl, assets, "cpu",
-                           os.path.join(WORK, "small", "out_cpu"), extra)
-        _, got = run_slice(reader, smpl_pkl, assets, "cuda",
+    fab = fabricate("small", 8, 12, 10, obj=(8, 12))
+    extra = ("--tiny-nets", "--net-size", "64", "--chunk-size", "4")
+    short = functools.partial(joint_mod.JointFitConfig, smpl_max_iter=1,
+                              iter_obj=1, iter_sil=2, joint_max_iter=2,
+                              sil_size=32)
+    short_fit = functools.partial(smplt_mod.SMPLTFitConfig, global_iters=2,
+                                  max_iters=6)
+    with wide_threshold(), \
+            mock.patch.object(joint_mod, "JointFitConfig", short), \
+            mock.patch.object(smplt_mod, "SMPLTFitConfig", short_fit):
+        _, ref = run_track(fab, "cpu", os.path.join(WORK, "small", "out_cpu"),
+                           extra)
+        _, got = run_track(fab, "cuda",
                            os.path.join(WORK, "small", "out_cuda"), extra)
     neural = ("neural_pca", "neural_trans", "neural_visibility")
     for k in neural:
         for side, out in (("cpu", ref), ("card", got)):
-            v = np.abs(np.asarray(out[k])).reshape(len(reader), -1)
+            v = np.abs(np.asarray(out[k])).reshape(len(fab[0]), -1)
             if not (v.max(1) > 0).all():
-                raise SystemExit(f"small slice on the {side}: {k} is zero "
+                raise SystemExit(f"small track on the {side}: {k} is zero "
                                  "for some frame (no surface point kept)")
     diffs = {k: float(np.abs(np.asarray(got[k], np.float64)
                              - np.asarray(ref[k], np.float64)).max())
-             for k in ("poses", "betas", "trans") + neural}
-    print(f"small slice, card vs CPU max |diff|: {json.dumps(diffs)}; "
-          f"neural means on the card: pca |max| "
-          f"{float(np.abs(got['neural_pca']).max()):.4g}, trans "
-          f"{np.asarray(got['neural_trans']).tolist()}, visibility "
-          f"{np.asarray(got['neural_visibility']).tolist()}")
-    bad = {k: v for k, v in diffs.items() if not v <= 1e-3}
+             for k in ("poses", "betas", "trans", "obj_trans") + neural}
+    diffs["obj_angles_deg"] = angle_deg(got["obj_angles"], ref["obj_angles"])
+    print(f"small whole track, card vs CPU max |diff|: {json.dumps(diffs)}")
+    limits = dict.fromkeys(neural, 1e-3)
+    limits.update(poses=1e-3, betas=1e-3, trans=1e-3, obj_trans=5e-3,
+                  obj_angles_deg=1.0)
+    bad = {k: v for k, v in diffs.items() if not v <= limits[k]}
     if bad:
-        raise SystemExit(f"card and CPU disagree on the small slice: {bad}")
+        raise SystemExit(f"card and CPU disagree on the small track: {bad}")
 
 
-def run_main_path(frames: int, wrappers: dict) -> dict:
-    """`track --neural-only` at release width, all frames in one chunk, on
-    the card; every kernel's count set to 0 just before. Returns the
-    launch counts."""
+def check_infiller(T=215):
+    """HVOP-Net's whole clip schedule (seed clip, two full clips, the
+    truncated tail) on a synthetic stream, card against CPU: rotations
+    within 1e-3 (four chained transformer passes in float32)."""
     import torch
-    reader, smpl_pkl, assets = fabricate(f"main{frames}", frames, 84, 82)
-    for w in wrappers.values():
-        w.launches = 0
-    summary, packed = run_slice(reader, smpl_pkl, assets, "cuda",
-                                os.path.join(WORK, f"main{frames}", "out"),
-                                ("--chunk-size", str(frames)))
-    launches = {name: w.launches for name, w in wrappers.items()}
+    from vistracker_tpu_torch.fit.infill import make_infiller
+    from vistracker_tpu_torch.models.infiller import (ConditionalMInfiller,
+                                                      InfillerConfig)
+    from vistracker_tpu_torch.models.weights import init_random_
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.RandomState(3)
+    poses = (rng.randn(T, 72) * 0.2).astype(np.float32)
+    trans = (rng.randn(T, 3) * 0.1 + [0, 0, 2.2]).astype(np.float32)
+    rots = Rotation.from_rotvec(rng.randn(T, 3)).as_matrix() \
+        .astype(np.float32)
+    occ = (rng.rand(T) > 0.3).astype(np.float32)
+    cfg = InfillerConfig()
+    model = init_random_(ConditionalMInfiller(cfg),
+                         torch.Generator().manual_seed(1)).eval()
+    ref = make_infiller(model, cfg)(poses, trans, rots, occ)
+    t0 = time.perf_counter()
+    got = make_infiller(model.to("cuda"), cfg)(poses, trans, rots, occ)
+    sec = time.perf_counter() - t0
+    err = float(np.abs(got - ref).max())
+    print(f"infiller, {T} frames (seed + 2 full clips + tail) card vs CPU: "
+          f"max |diff| {err:.3e}, {sec:.3f} s on the card")
+    if not (got.shape == (T, 3, 3) and err <= 1e-3):
+        raise SystemExit(f"infiller card vs CPU: max |diff| {err}")
+
+
+class PhaseProbe:
+    """Wraps fit/joint.py:_adam_phase for the main path's non-vacuity
+    checks: the object translation each chunk's first object phase starts
+    from, and the silhouette phase's loss gradient at its first step. The
+    object optimizer runs its phases in the order object, silhouette,
+    joint, each on the leaves {obj_r, obj_t}; the probe tells them apart
+    by that order. The probe's own forward and backward are kept out of
+    the launch counts: the counts are put back to what they were."""
+
+    PHASES = ("object", "silhouette", "joint")
+
+    def __init__(self, joint_mod, counters):
+        self.inner = joint_mod._adam_phase
+        self.counters = counters
+        self.object_calls = 0
+        self.t_init, self.sil_grads = [], []
+
+    def __call__(self, loss_fn, params, lrs, max_iters, spi, decay_fn,
+                 *rest):
+        import torch
+        if set(params) == {"obj_r", "obj_t"}:
+            phase = self.PHASES[self.object_calls % len(self.PHASES)]
+            self.object_calls += 1
+            if phase == "silhouette":
+                counts = self.counters.read()
+                leaves = {k: v.detach().clone().requires_grad_(True)
+                          for k, v in params.items()}
+                grads = torch.autograd.grad(
+                    loss_fn(leaves, decay_fn(0)), list(leaves.values()))
+                self.sil_grads.append(dict(zip(leaves, grads)))
+                probed = self.counters.read()
+                if not (probed["max_logit_fwd_soft"]
+                        > counts["max_logit_fwd_soft"]
+                        and probed["max_logit_bwd"]
+                        > counts["max_logit_bwd"]):
+                    raise SystemExit("main path: the phase taken for the "
+                                     "silhouette phase launched no "
+                                     "silhouette kernel")
+                self.counters.write(counts)
+            elif phase == "object":
+                self.t_init.append(params["obj_t"].detach().cpu().numpy())
+        return self.inner(loss_fn, params, lrs, max_iters, spi, decay_fn,
+                          *rest)
+
+
+class LaunchCounts:
+    """The kernels' launch counts, by the names of the {"kernels": ...}
+    line. The forward max-logit kernel has one count in its wrapper; the
+    launches made for the soft silhouette are counted where its
+    autograd.Function calls the wrapper, and the rest are the hard
+    mask's."""
+
+    def __init__(self):
+        from vistracker_tpu_torch.ops import coverage, label_nn
+        self.cov, self.nn = coverage, label_nn
+
+    def read(self) -> dict:
+        soft = self.cov._MaxLogit.fwd_launches
+        return {"max_logit_fwd": self.cov.max_logit_fwd.launches - soft,
+                "max_logit_fwd_soft": soft,
+                "max_logit_bwd": self.cov.max_logit_bwd.launches,
+                "label_nn": self.nn.label_nn_fwd.launches}
+
+    def write(self, counts: dict):
+        self.cov._MaxLogit.fwd_launches = counts["max_logit_fwd_soft"]
+        self.cov.max_logit_fwd.launches = (counts["max_logit_fwd"]
+                                           + counts["max_logit_fwd_soft"])
+        self.cov.max_logit_bwd.launches = counts["max_logit_bwd"]
+        self.nn.label_nn_fwd.launches = counts["label_nn"]
+
+
+def occlude_few_infiller():
+    """The untrained net's visibility hovers around 0.5, the infiller's
+    occlusion threshold, on either side of it. With the threshold placed
+    inside this run's visibilities so that a tenth of the frames (at most
+    all but 30) count as occluded, the seed gate (30 visible frames)
+    passes from 30 frames on and HVOP-Net really infills, for any
+    weights."""
+    from vistracker_tpu_torch.fit import infill as infill_mod
+    make = infill_mod.make_infiller
+
+    def make_with_threshold(model, cfg):
+        run = make(model, cfg)
+
+        def run_with_threshold(poses, trans, rots, occ):
+            n_occluded = max(0, min(len(occ) // 10, len(occ) - cfg.window))
+            thr = float(np.sort(np.asarray(occ).reshape(-1))[n_occluded])
+            return run(poses, trans, rots, occ, occ_thres=thr,
+                       init_thres=thr)
+        return run_with_threshold
+
+    return mock.patch.object(infill_mod, "make_infiller",
+                             make_with_threshold)
+
+
+def run_main_path(frames: int, chunk: int, device="cuda", extra=(),
+                  mesh=(84, 82)) -> dict:
+    """The whole `track` at release width on the card, `frames` frames in
+    chunks of `chunk`; every kernel's count set to 0 just before. Returns
+    the launch counts."""
+    import torch
+    from vistracker_tpu_torch.fit import joint as joint_mod
+
+    fab = fabricate(f"main{frames}", frames, *mesh)
+    counters = LaunchCounts()
+    probe = PhaseProbe(joint_mod, counters)
+    with wide_threshold(), occlude_few_infiller(), \
+            mock.patch.object(joint_mod, "_adam_phase", probe):
+        counters.write(dict.fromkeys(counters.read(), 0))
+        summary, packed = run_track(
+            fab, device, os.path.join(WORK, f"main{frames}", "out"),
+            ("--chunk-size", str(chunk), *extra))
+        launches = counters.read()
     check_outputs(packed, frames)
-    peaks = summary["stage_peak_gib"]
-    print(f"main path: {frames} frames in one chunk in "
+    vis = np.asarray(packed["neural_visibility"])
+    if not (vis > 0).all():
+        raise SystemExit(f"main path: visibility is 0 for some frame: {vis}")
+    n_chunks = -(-frames // chunk)
+    if probe.object_calls != 3 * n_chunks \
+            or len(probe.sil_grads) != n_chunks:
+        raise SystemExit("main path: the stage-6 phases were not seen")
+    gmax = {}
+    for g in probe.sil_grads:
+        for k, v in g.items():
+            if not bool(torch.isfinite(v).all()) or float(v.abs().max()) == 0:
+                raise SystemExit(f"main path: the silhouette phase's first "
+                                 f"gradient w.r.t. {k} is zero or not finite")
+            gmax[k] = max(gmax.get(k, 0.0), float(v.abs().max()))
+    moved = float(np.abs(np.asarray(packed["obj_trans"])
+                         - np.concatenate(probe.t_init)).max())
+    if not moved > 0:
+        raise SystemExit("main path: obj_trans did not move from its init")
+    if frames >= 30 and not summary["stage5_infilled"]:
+        raise SystemExit("main path: HVOP-Net did not run (pass-through)")
+    peaks = summary.get("stage_peak_gib", dict.fromkeys(
+        summary["stage_seconds"], 0.0))
+    print(f"main path: {frames} frames in chunks of {chunk} in "
           f"{summary['seconds']:.2f} s ({summary['fps']:.3f} frames/s), "
           f"peak device memory {max(peaks.values()):.2f} GiB of "
           f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}"
-          f"; random draws {summary['draw_seconds']:.4f} s on the host")
+          f"; random draws {summary['draw_seconds']:.4f} s on the host; "
+          f"visibility {vis.min():.4f}..{vis.max():.4f}; first silhouette "
+          f"gradient max |.| {json.dumps(gmax)}; obj_trans moved by up to "
+          f"{moved:.4f} m; iterations smpl "
+          f"{summary['iters_smpl_mean']}, joint "
+          f"{summary['iters_joint_mean']}; launches {json.dumps(launches)}")
     for stage, sec in summary["stage_seconds"].items():
         print(f"  {stage}: {sec:.3f} s, peak {peaks[stage]:.2f} GiB")
     return launches
@@ -311,39 +711,47 @@ def run_main_path(frames: int, wrappers: dict) -> dict:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--frames", type=int, nargs="+", default=[8],
-                    help="main-path frame counts (one chunk each); the "
-                         "first is the run whose launches are counted")
+    ap.add_argument("--frames", type=int, nargs="+", default=[32],
+                    help="main-path frame counts; the first runs in chunks "
+                         "of --chunk and is the run whose launches are "
+                         "counted, each further one runs in one chunk")
+    ap.add_argument("--chunk", type=int, default=16)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernel checks (phases 1-4); "
+                         "prints no result line")
     opts = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         sys.exit(1)
-    from vistracker_tpu_torch.ops.coverage import max_logit_fwd
-    from vistracker_tpu_torch.utils.cuda_build import build
+    from vistracker_tpu_torch.utils.cuda_build import build_all
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    wrappers = {"max_logit_fwd": max_logit_fwd}
     t0 = time.perf_counter()
-    for name in wrappers:
-        log = build(name)
+    for name, log in build_all(KERNEL_SOURCES).items():
         for line in log.splitlines():
             if any(w in line for w in ("properties", "registers", "spill")):
                 print(f"  {name}: {line.strip()}")
-    print(f"built {sorted(wrappers)} in {time.perf_counter() - t0:.1f} s")
+    print(f"built {list(KERNEL_SOURCES)} in {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}")
 
-    records = [check_k1(torch.device("cuda"))]
+    device = torch.device("cuda")
+    records = [check_k1(device, frames=opts.chunk), *check_sil(device),
+               check_k3(device)]
+    if opts.kernels_only:
+        print(json.dumps({"kernels": records}))
+        sys.exit(3)
     check_small_cpu_vs_card()
+    check_infiller()
 
-    launches = run_main_path(opts.frames[0], wrappers)
+    launches = run_main_path(opts.frames[0], opts.chunk)
     for frames in opts.frames[1:]:
-        run_main_path(frames, wrappers)
+        run_main_path(frames, frames)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if rec["launches"] < 1:

@@ -120,3 +120,22 @@ def axis_angle_to_rot6d(theta: torch.Tensor) -> torch.Tensor:
 
 def rot6d_to_axis_angle(x: torch.Tensor) -> torch.Tensor:
     return rotmat_to_axis_angle(rot6d_to_rotmat(x))
+
+
+def project_so3(mat: torch.Tensor) -> torch.Tensor:
+    """Project (..., 3, 3) matrices onto SO(3): U diag(1, 1, det(U Vt)) Vt
+    from the SVD, so the result is a proper rotation. Differentiable (the
+    stage-6 optimizer differentiates it; see fit/joint.py:decopose_axis
+    for the perturbation that keeps the singular values apart)."""
+    u, _, vt = torch.linalg.svd(mat)
+    det = torch.linalg.det(u @ vt)
+    d = torch.cat([torch.ones_like(det)[..., None].expand(
+        det.shape + (2,)), det[..., None]], -1)
+    return (u * d[..., None, :]) @ vt
+
+
+def rotation_angle_deg(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+    """Geodesic angle in degrees between rotation matrices (..., 3, 3)."""
+    rel = r1 @ r2.transpose(-1, -2)
+    tr = rel[..., 0, 0] + rel[..., 1, 1] + rel[..., 2, 2]
+    return torch.rad2deg(torch.acos(torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)))

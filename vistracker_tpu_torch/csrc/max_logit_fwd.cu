@@ -31,9 +31,15 @@
 // Rounding: each plane is fma(a, px, fma(b, py, c)) with px, py =
 // fma(index, 2/(S-1), -1): that is how the JAX reference evaluates the
 // kernel body on the CPU (XLA contracts each product into an FMA; with
-// separate roundings pixels of m differ from it). __fmaf_rn pins it, and
-// the plain PyTorch version (ops/coverage.py) emulates the same FMAs. A
-// different rounding flips edge pixels of the hard mask.
+// separate roundings pixels of m differ from it). plane_eval.cuh pins it
+// with __fmaf_rn for this kernel and for the backward kernel, which
+// recomputes the same values; the plain PyTorch version (ops/coverage.py)
+// emulates the same FMAs. A different rounding flips edge pixels of the
+// hard mask.
+//
+// The soft silhouette (stage 6) uses this kernel too: at <= 256 px the x
+// tile is the whole row, the liveness comes from the interval bound
+// (ops/coverage.py:_strip_active) and the sigmoid runs outside.
 //
 // Bound on an H100: fp32 work on CUDA cores over the LIVE cells only --
 // per (pixel, face) 5 FMAs (10 flops) + 4 mins + 1 compare = 15
@@ -44,15 +50,17 @@
 
 #include <cuda_runtime.h>
 
+#include "plane_eval.cuh"
+
 namespace {
 
-constexpr int kFblk = 128;    // faces per block
-constexpr int kRblk = 8;      // image rows per strip
-constexpr int kNpl = 5;       // planes per face
-constexpr int kCw = 3 * kNpl; // coefficients per face
+using vt::kBig;
+using vt::kCw;
+using vt::kFblk;
+using vt::kNpl;
+using vt::kRblk;
 constexpr int kPad = 16;      // shared-memory floats per face
 constexpr int kMaxThreads = 256;
-constexpr float kBig = 1e9f;
 
 template <int PPT>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -74,12 +82,12 @@ max_logit_fwd_kernel(const float* __restrict__ cpl,
   const int p0 = tid * PPT;
   const int row = r_idx * kRblk + p0 / xblk;
   const int col0 = x_idx * xblk + p0 % xblk;
-  const float py = __fmaf_rn(static_cast<float>(row), scale, -1.0f);
+  const float py = vt::pixel_coord(row, scale);
   float px[PPT], best[PPT];
   int count[PPT];
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    px[k] = __fmaf_rn(static_cast<float>(col0 + k), scale, -1.0f);
+    px[k] = vt::pixel_coord(col0 + k, scale);
     best[k] = -kBig;
     count[k] = 0;
   }
@@ -102,15 +110,15 @@ max_logit_fwd_kernel(const float* __restrict__ cpl,
       // plane j is (a, b, c) at floats 3j .. 3j + 2 of the face
       const float a[kNpl] = {q0.x, q0.w, q1.z, q2.y, q3.x};
       const float inner[kNpl] = {
-          __fmaf_rn(q0.y, py, q0.z), __fmaf_rn(q1.x, py, q1.y),
-          __fmaf_rn(q1.w, py, q2.x), __fmaf_rn(q2.z, py, q2.w),
-          __fmaf_rn(q3.y, py, q3.z)};
+          vt::row_term(q0.y, py, q0.z), vt::row_term(q1.x, py, q1.y),
+          vt::row_term(q1.w, py, q2.x), vt::row_term(q2.z, py, q2.w),
+          vt::row_term(q3.y, py, q3.z)};
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        float mv = __fmaf_rn(a[0], px[k], inner[0]);
+        float mv = vt::plane_value(a[0], px[k], inner[0]);
 #pragma unroll
         for (int j = 1; j < kNpl; ++j) {
-          mv = fminf(mv, __fmaf_rn(a[j], px[k], inner[j]));
+          mv = fminf(mv, vt::plane_value(a[j], px[k], inner[j]));
         }
         if (mv > best[k]) {
           best[k] = mv;

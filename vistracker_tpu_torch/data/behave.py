@@ -24,6 +24,9 @@ class SeqInfo:
     def get_gender(self) -> str:
         return self.info["gender"]
 
+    def get_obj_name(self) -> str:
+        return self.info["cat"]
+
 
 def _clean_kpts(arr: np.ndarray, tol: float) -> np.ndarray:
     arr = np.asarray(arr, np.float32).reshape(-1, 3)[:25].copy()
@@ -132,3 +135,17 @@ class MemoryFrameReader:
     def get_mocap_params(self, idx: int, kid: int):
         return (np.asarray(self.mocap[0][idx], np.float32).reshape(-1),
                 np.asarray(self.mocap[1][idx], np.float32).reshape(-1))
+
+
+def load_template(objects_root: str, obj_name: str, center: bool = True):
+    """Load an object template mesh (verts, faces), centered at its vertex
+    mean: <objects_root>/<obj_name>/<obj_name>.ply (BEHAVE layout) or a
+    flat <objects_root>/<obj_name>.ply."""
+    from ..utils.mesh import load_ply
+
+    for cand in (osp.join(objects_root, obj_name, f"{obj_name}.ply"),
+                 osp.join(objects_root, f"{obj_name}.ply")):
+        if osp.isfile(cand):
+            v, f = load_ply(cand)
+            return (v - v.mean(0) if center else v), f
+    raise FileNotFoundError(f"no template for {obj_name} under {objects_root}")

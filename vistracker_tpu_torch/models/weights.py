@@ -1,5 +1,6 @@
-"""Weights for the port's SIF-Net: seeded random init, released torch
-checkpoints, and weights carried over from the JAX package's flax params.
+"""Weights for the port's networks (SIF-Net, SmoothNet, the infillers):
+seeded random init, released torch checkpoints, and weights carried over
+from the JAX package's flax params.
 
 The port's modules use the reference's parameter names, so a released
 tri-vis-l2 tar loads with load_state_dict after its "module." prefixes
@@ -8,7 +9,9 @@ flax params (numpy arrays) into the same state_dict, which is how the
 tests hold the two packages to the same weights. Layouts:
   flax Conv kernel (kh, kw, in, out)  -> torch Conv2d (out, in, kh, kw)
   flax Dense kernel (in, out)         -> torch Conv1d k=1 (out, in, 1)
-  flax GroupNorm scale / bias         -> torch weight / bias
+  flax Dense kernel (in, out)         -> torch Linear (out, in)
+  flax q_proj / k_proj / v_proj       -> torch in_proj_weight / in_proj_bias
+  flax GroupNorm / LayerNorm scale    -> torch weight
 """
 from __future__ import annotations
 
@@ -22,21 +25,28 @@ import torch
 from torch import nn
 
 from .sifnet import SIFNet, SIFNetConfig
+from .transformer import MultiheadSelfAttention
 
 
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-initialize every parameter from `generator` (a CPU generator):
-    convs uniform in +-1/sqrt(fan_in) (PyTorch's default bound), norms
-    weight 1 and bias 0. Deterministic for a given seed on any device."""
+    convs, linears and packed attention projections uniform in
+    +-1/sqrt(fan_in) (PyTorch's default bound), norms weight 1 and bias
+    0. Deterministic for a given seed on any device."""
+    def fill(params, fan_in):
+        bound = 1.0 / math.sqrt(fan_in)
+        for p in params:
+            if p is not None:
+                u = torch.rand(p.shape, generator=generator)
+                p.copy_(u * (2 * bound) - bound)
+
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, (nn.Conv1d, nn.Conv2d)):
-                bound = 1.0 / math.sqrt(mod.weight[0].numel())
-                for p in (mod.weight, mod.bias):
-                    if p is not None:
-                        u = torch.rand(p.shape, generator=generator)
-                        p.copy_(u * (2 * bound) - bound)
-            elif isinstance(mod, nn.GroupNorm):
+            if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Linear)):
+                fill((mod.weight, mod.bias), mod.weight[0].numel())
+            elif isinstance(mod, MultiheadSelfAttention):
+                fill((mod.in_proj_weight, mod.in_proj_bias), mod.d_model)
+            elif isinstance(mod, (nn.GroupNorm, nn.LayerNorm)):
                 mod.weight.fill_(1.0)
                 mod.bias.fill_(0.0)
     return model
@@ -82,6 +92,84 @@ def sifnet_state_dict_from_flax(params: dict, cfg: SIFNetConfig) -> dict:
         else:  # Conv1d head layer from a Dense kernel
             w = np.asarray(node["kernel"]).T[..., None]
         sd[key] = torch.from_numpy(np.array(w, np.float32))
+    return sd
+
+
+def _t(x, transpose=False) -> torch.Tensor:
+    a = np.array(x, np.float32)
+    return torch.from_numpy(a.T.copy() if transpose else a)
+
+
+def _put_dense(sd: dict, key: str, node: dict):
+    sd[f"{key}.weight"] = _t(node["kernel"], transpose=True)
+    sd[f"{key}.bias"] = _t(node["bias"])
+
+
+def _put_norm(sd: dict, key: str, node: dict):
+    sd[f"{key}.weight"] = _t(node["scale"])
+    sd[f"{key}.bias"] = _t(node["bias"])
+
+
+def smoothnet_state_dict_from_flax(params: dict, smpl: bool = False) -> dict:
+    """The JAX package's flax SmoothNet (smpl=False) or SmoothNetSMPL
+    params -> the port's state_dict; the inverse of the JAX package's
+    models/torch_import.py:smoothnet_params."""
+    tree = params.get("params", params)
+
+    def one(node, prefix):
+        sd = {}
+        _put_dense(sd, f"{prefix}encoder.0", node["encoder"])
+        _put_dense(sd, f"{prefix}decoder", node["decoder"])
+        i = 0
+        while f"res{i}" in node:
+            for lin in ("linear1", "linear2"):
+                _put_dense(sd, f"{prefix}res_blocks.{i}.{lin}",
+                           node[f"res{i}"][lin])
+            i += 1
+        return sd
+
+    if smpl:
+        return {**one(tree["pose_net"], "pose_net."),
+                **one(tree["trans_net"], "trans_net.")}
+    return one(tree, "")
+
+
+def _put_transformer(sd: dict, prefix: str, node: dict):
+    i = 0
+    while f"layer{i}" in node:
+        layer, lp = node[f"layer{i}"], f"{prefix}.encoder.layers.{i}"
+        att = layer["self_attn"]
+        sd[f"{lp}.self_attn.in_proj_weight"] = torch.cat(
+            [_t(att[k]["kernel"], transpose=True)
+             for k in ("q_proj", "k_proj", "v_proj")])
+        sd[f"{lp}.self_attn.in_proj_bias"] = torch.cat(
+            [_t(att[k]["bias"]) for k in ("q_proj", "k_proj", "v_proj")])
+        _put_dense(sd, f"{lp}.self_attn.out_proj", att["out_proj"])
+        _put_dense(sd, f"{lp}.linear1", layer["linear1"])
+        _put_dense(sd, f"{lp}.linear2", layer["linear2"])
+        _put_norm(sd, f"{lp}.norm1", layer["norm1"])
+        _put_norm(sd, f"{lp}.norm2", layer["norm2"])
+        i += 1
+    if "norm" in node:
+        _put_norm(sd, f"{prefix}.encoder.norm", node["norm"])
+
+
+def infiller_state_dict_from_flax(params: dict) -> dict:
+    """The JAX package's flax ConditionalMInfiller or MotionInfiller
+    params -> the port's state_dict; the inverse of the JAX package's
+    models/torch_import.py:infiller_params."""
+    tree = params.get("params", params)
+    sd = {}
+    for name, node in tree.items():
+        if name.startswith("feat_proj"):
+            _put_dense(sd, name, node)
+        elif name.startswith("encoder"):
+            _put_transformer(sd, name, node)
+    head, i = tree["predictor"], 0
+    while f"hidden{i}" in head:
+        _put_dense(sd, f"predictor.{2 * i}", head[f"hidden{i}"])
+        i += 1
+    _put_dense(sd, f"predictor.{2 * i}", head["out"])
     return sd
 
 

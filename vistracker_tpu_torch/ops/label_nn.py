@@ -1,0 +1,149 @@
+"""Labelled nearest neighbour through kernel K3 (the contact pairing of
+the stage-6 joint phase).
+
+Mirrors vistracker_tpu/ops/chamfer.py:label_compatible_nn (the semantics)
+and vistracker_tpu/ops/pallas_nn.py:label_nn_pallas_batched (the kernel
+with its saved-argmin gradient). For x (B, N, 3) and y (B, M, 3) with
+integer labels and a validity flag per y point, `label_nn` returns per x
+point the min squared distance to the valid y points of the same label,
+1e10 where there is none.
+
+`label_nn_fwd` is the wrapper: a CUDA tensor launches the hand-written
+kernel csrc/label_nn.cu (or raises), a CPU tensor runs the plain PyTorch
+version `label_nn_plain`, which spells out the kernel's arithmetic
+operation by operation and is bit-equal to it. The gradient comes from
+the saved argmin: dx = 2 (x - y[idx]) g, dy its negative scattered onto
+y; on exact distance ties the first y point gets all of it.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+_NONE = 1e10     # distance where no compatible y point exists
+_PLAIN_ROWS = 1024  # x points per block of the plain version
+
+
+def _sq_norm(v: torch.Tensor) -> torch.Tensor:
+    return (v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]) \
+        + v[..., 2] * v[..., 2]
+
+
+def _check(x, labels_x, y, labels_y, y_valid):
+    if x.dtype != torch.float32 or y.dtype != torch.float32:
+        raise TypeError(f"label_nn takes float32 points, got {x.dtype} and "
+                        f"{y.dtype}")
+    if x.dim() != 3 or y.dim() != 3 or x.shape[2] != 3 or y.shape[2] != 3 \
+            or x.shape[0] != y.shape[0] or 0 in x.shape or 0 in y.shape:
+        raise ValueError(f"points must be (B, N, 3) and (B, M, 3), got "
+                         f"{tuple(x.shape)} and {tuple(y.shape)}")
+    if labels_x.shape != x.shape[:2] or labels_y.shape != y.shape[:2] \
+            or y_valid.shape != y.shape[:2]:
+        raise ValueError("labels and validity must be (B, N), (B, M), (B, M)")
+    if labels_x.dtype.is_floating_point or labels_y.dtype.is_floating_point \
+            or y_valid.dtype != torch.bool:
+        raise TypeError("labels must be integers and validity bool")
+    if not (x.device == y.device == labels_x.device == labels_y.device
+            == y_valid.device):
+        raise ValueError("all inputs must share a device")
+
+
+def label_nn_plain(x, labels_x, y, labels_y, y_valid):
+    """Plain PyTorch K3: (min squared distance (B, N) float32, argmin
+    (B, N) int64). Each operation is rounded once, in the kernel's order:
+    x.y = (x0 y0 + x1 y1) + x2 y2, d = max((|x|^2 + |y|^2) - 2 x.y, 0);
+    the argmin is the least index attaining the min, 0 where no y point
+    is compatible."""
+    _check(x, labels_x, y, labels_y, y_valid)
+    B, N, _ = x.shape
+    M = y.shape[1]
+    yy = _sq_norm(y)[:, None, :]
+    col = torch.arange(M, device=x.device)
+    none = torch.tensor(_NONE, dtype=torch.float32, device=x.device)
+    mins, idxs = [], []
+    for s in range(0, N, _PLAIN_ROWS):
+        xc = x[:, s:s + _PLAIN_ROWS]
+        xy = (xc[:, :, None, 0] * y[:, None, :, 0]
+              + xc[:, :, None, 1] * y[:, None, :, 1]) \
+            + xc[:, :, None, 2] * y[:, None, :, 2]
+        d = torch.clamp((_sq_norm(xc)[:, :, None] + yy) - 2.0 * xy, min=0.0)
+        ok = y_valid[:, None, :] & (labels_x[:, s:s + _PLAIN_ROWS, None]
+                                    == labels_y[:, None, :])
+        d = torch.where(ok, d, none)
+        m = d.amin(-1)
+        mins.append(m)
+        idxs.append(torch.where(d <= m[..., None], col, M).amin(-1))
+    return torch.cat(mins, 1), torch.cat(idxs, 1)
+
+
+def label_nn_fwd(x, labels_x, y, labels_y, y_valid):
+    """K3 forward -> (min (B, N) float32, argmin (B, N) int64). A CUDA
+    tensor launches the hand-written kernel; a CPU tensor runs
+    label_nn_plain."""
+    if x.device.type == "cpu":
+        return label_nn_plain(x, labels_x, y, labels_y, y_valid)
+    if x.device.type != "cuda":
+        raise ValueError(f"label_nn: unsupported device {x.device}")
+    _check(x, labels_x, y, labels_y, y_valid)
+    from ..utils.cuda_build import load_library
+
+    fn = load_library("label_nn").vt_label_nn
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    B, N, _ = x.shape
+    M = y.shape[1]
+    xc, yc = x.contiguous(), y.contiguous()
+    lx = labels_x.to(torch.int32).contiguous()
+    ly = labels_y.to(torch.int32).contiguous()
+    valid = y_valid.contiguous().view(torch.uint8)
+    dmin = torch.empty((B, N), dtype=torch.float32, device=x.device)
+    idx = torch.empty((B, N), dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = fn(xc.data_ptr(), lx.data_ptr(), yc.data_ptr(), ly.data_ptr(),
+                 valid.data_ptr(), dmin.data_ptr(), idx.data_ptr(), B, N, M,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"label_nn kernel launch failed: CUDA error {err}")
+    label_nn_fwd.launches += 1
+    return dmin, idx.long()
+
+
+label_nn_fwd.launches = 0
+
+
+class _LabelNN(torch.autograd.Function):
+    """min squared distance with the gradient from the saved argmin."""
+
+    @staticmethod
+    def forward(ctx, x, labels_x, y, labels_y, y_valid):
+        d, idx = label_nn_fwd(x.detach(), labels_x, y.detach(), labels_y,
+                              y_valid)
+        ctx.save_for_backward(x, y, idx, d < 0.5 * _NONE)
+        return d
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, idx, found = ctx.saved_tensors
+        need_x, need_y = ctx.needs_input_grad[0], ctx.needs_input_grad[2]
+        dx = dy = None
+        if need_x or need_y:
+            yn = torch.gather(y, 1, idx[..., None].expand(-1, -1, 3))
+            diff = 2.0 * (x - yn) * (g * found.to(g.dtype))[..., None]
+            dx = diff if need_x else None
+            if need_y:
+                # index_put_ with accumulate sorts the indices on a GPU, so
+                # the sum has one order on every run (index_add_ uses
+                # atomics there)
+                rows = torch.arange(y.shape[0], device=y.device)[:, None] \
+                    .expand_as(idx)
+                dy = torch.zeros_like(y).index_put_((rows, idx), -diff,
+                                                    accumulate=True)
+        return dx, None, dy, None, None
+
+
+def label_nn(x, labels_x, y, labels_y, y_valid) -> torch.Tensor:
+    """(B, N) min squared distance from each x point to the valid y points
+    of the same label (1e10 where none), differentiable w.r.t. x and y."""
+    return _LabelNN.apply(x, labels_x, y, labels_y, y_valid)

@@ -1,12 +1,14 @@
 """Orthographic coverage masks for the stage-3 triplane inputs.
 
-Port of vistracker_tpu/ops/rasterizer.py (the hard-mask half; the soft
-silhouette belongs to stage 6). Each face becomes 5 inside-positive
+Port of vistracker_tpu/ops/rasterizer.py. Each face becomes 5 inside-positive
 linear planes -- its 3 unit-normal edge lines and 2 caps through the
 endpoints of its longest edge -- and a pixel is covered iff the min over
 a face's planes is >= 0 for some face. `render_triplane_masks_batch`
 runs every view through the coverage kernel (ops/coverage.py, kernel K1);
-`rasterize_mask` is the plain dense formulation kept as a reference.
+`rasterize_mask` is the plain dense formulation kept as a reference, and
+`soft_silhouette` the plain dense differentiable silhouette that the
+stage-6 kernel path (ops/coverage.py:soft_silhouette_batch) is tested
+against.
 """
 from __future__ import annotations
 
@@ -90,6 +92,24 @@ def rasterize_mask(v2d: torch.Tensor, faces: torch.Tensor, size: int = 512,
         inside = (e >= 0.0).all(1) & nondeg[s:s + chunk, None]
         mask |= inside.any(0)
     return mask.reshape(size, size).float()
+
+
+def soft_silhouette(v2d: torch.Tensor, faces: torch.Tensor, size: int = 256,
+                    sigma: float = 1e-4, chunk: int = 512) -> torch.Tensor:
+    """Differentiable silhouette (size, size) in [0, 1] of one 2D mesh:
+    per face p_f = sigmoid(min over its 5 planes / sigma), faces combined
+    with max. Dense and differentiable through autograd (max and min
+    split a cotangent equally among exact ties, as torch.amax / amin do);
+    an independent reference, not a path."""
+    grid = torch.as_tensor(pixel_grid(size), device=v2d.device)
+    planes, nondeg = _face_planes(v2d, faces)
+    sil = torch.zeros(size * size, dtype=v2d.dtype, device=v2d.device)
+    for s in range(0, faces.shape[0], chunk):
+        e = torch.einsum("fip,pn->fin", planes[s:s + chunk], grid)
+        p = torch.sigmoid(e.amin(1) / sigma)
+        p = torch.where(nondeg[s:s + chunk, None], p, torch.zeros_like(p))
+        sil = torch.maximum(sil, p.amax(0))
+    return sil.reshape(size, size)
 
 
 def render_triplane_masks_batch(verts: torch.Tensor, faces: torch.Tensor,

@@ -8,7 +8,9 @@ takes seconds):
          -Xcompiler -fPIC -o build/kernels/lib<name>_<hash>.so csrc/<name>.cu
 
 The library lands in build/kernels/ at the root of the checkout; its name
-carries a hash of the source and flags, so an edited source is rebuilt.
+carries a hash of the source, the shared headers (csrc/*.cuh) and the
+flags, so an edited source is rebuilt. `build_all` starts one nvcc per
+source at once.
 """
 from __future__ import annotations
 
@@ -39,25 +41,43 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
 
 
+def build_all(names) -> dict:
+    """Compile csrc/<name>.cu for every name whose library is missing, all
+    nvcc processes started together; returns {name: nvcc log} (ptxas
+    register and shared-memory lines), "" for one already built."""
+    logs, running = {}, []
+    for name in names:
+        out = _lib_path(name)
+        if out.is_file():
+            logs[name] = ""
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        running.append((name, out, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, out, tmp, proc in running:
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for csrc/{name}.cu:\n{logs[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
 def build(name: str) -> str:
     """Compile csrc/<name>.cu unless its library exists; returns the nvcc
-    log (ptxas register and shared-memory lines), "" if already built."""
-    out = _lib_path(name)
-    if out.is_file():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{proc.stdout}")
-    os.replace(tmp, out)
-    return proc.stdout
+    log, "" if already built."""
+    return build_all([name])[name]
 
 
 @functools.cache
