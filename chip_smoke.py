@@ -19,12 +19,21 @@ Phases (any failure exits non-zero):
      labels, partial validity, both directions, requiring min and argmin
      bit-equal to label_nn_plain, rows without a compatible point
      included; the scatter of its gradient twice, for run-to-run equality;
-  5. the whole `track` at a small size on the CPU and on the card, same
+  5. kernel K4 (csrc/label_nn.cu, entry vt_nn_min) at the evaluate shape
+     -- 10,000 x 10,000 surface samples at metre scale, one cloud a call
+     -- unmasked and with a partial y-mask, on a small batch with an
+     all-masked row and on clouds of 1 and 129 points, requiring min and
+     argmin bit-equal to nn_min_sqdist_plain; kernel, plain, bound and
+     library (torch.cdist) times;
+  6. the whole `track` at a small size on the CPU and on the card, same
      inputs and seeds, with a surface threshold wide enough that the
      untrained net keeps surface points: the packed outputs must agree;
-  6. the infiller's clip schedule (seed clip, full clips, truncated tail)
+  7. the infiller's clip schedule (seed clip, full clips, truncated tail)
      on a synthetic 215-frame stream, card against CPU;
-  7. the main path: the whole `track` through the port's entry point on a
+  8. `evaluate` at a small size (40 frames, window 16, 2,000 chamfer
+     samples, recon_exist holes) on the CPU and on the card, same packs:
+     the error matrices must agree;
+  9. the main path: the whole `track` through the port's entry point on a
      32-frame BEHAVE-layout sequence held in memory (2048x1536 frames, a
      6890-vertex SMPL-H model, a 2,520-face object template read from a
      .ply), two chunks of 16, release SIF-Net, SmoothNets and HVOP-Net
@@ -34,7 +43,15 @@ Phases (any failure exits non-zero):
      object translation's movement must be non-zero, the object rotations
      proper. Each further --frames value runs it again with that many
      frames in one chunk, to read per-stage peak device memory;
-  8. a {"kernels": [...]} line, the nvidia-smi name/power-limit line and,
+ 10. `evaluate` through the port's entry point at release settings (10,000
+     chamfer samples, window 300) on the card: the pack the main path's
+     `track` wrote against a GT pack of the sequence's own parameters
+     (single-sequence mode, --angles), then a fabricated 900-frame recon
+     with 5% recon_exist holes and a 30-frame identity pair (split mode);
+     K4's count, set to 0 before each run, must read 4 per evaluated
+     frame after it; every error must be finite, the identity pair's v2v
+     0;
+ 11. a {"kernels": [...]} line, the nvidia-smi name/power-limit line and,
      last, {"ok": true, "device": {...}}.
 Scratch files go to build/chip_smoke/ next to this script. Imports no JAX.
 """
@@ -64,6 +81,7 @@ K2_OPS_PER_PIXEL_FACE = 15
 # x.y 5, distance 3, mask 2, running min 2; the clamp at 0 is not counted
 # (apart from the order of ties at 0 it could follow the min)
 K3_OPS_PER_PAIR = 12
+K4_OPS_PER_PAIR = 11  # K3's less the label compare
 KERNEL_SOURCES = ("max_logit_fwd", "max_logit_bwd", "label_nn")
 
 
@@ -349,19 +367,76 @@ def check_k3(device, B=16, N=6890, M=3000, seed=2):
             "max_abs_err": err, **times, **bnd, "library_ms": None}
 
 
-def fabricate(tag: str, frames: int, rings: int, segments: int, seed=0,
-              obj=(35, 36)):
-    """An in-memory BEHAVE-layout sequence (MemoryFrameReader) plus a
-    synthetic SMPL-H pkl, assets and an object template folder on disk
-    under build/chip_smoke/<tag>; returns (reader, smpl_pkl, assets,
-    objects_root)."""
-    from vistracker_tpu_torch.core.smpl import SMPLH_PARENTS
-    from vistracker_tpu_torch.data.behave import MemoryFrameReader
-    from vistracker_tpu_torch.utils.mesh import save_ply
+def check_k4(device, N=10000, M=10000, seed=4):
+    """K4 against nn_min_sqdist_plain at the evaluate shape (one cloud of
+    10,000 surface samples against another, metre scale, 2.2 m from the
+    camera), unmasked as the chamfer calls it and with a partial y-mask;
+    on a batch of three 129-point clouds whose middle row has no valid y
+    point (1e10, index 0) and on a single point; N = 10,000 = 78 x 128 +
+    16 already leaves a partial block. Min and argmin bit-equal. Times at
+    the evaluate shape; the library time is torch.cdist(x, y[valid])
+    .square().amin(1), three calls and a gather, with TF32 off."""
+    import torch
+    from vistracker_tpu_torch.ops.chamfer import (nn_min_sqdist_fwd,
+                                                  nn_min_sqdist_plain)
 
     rng = np.random.RandomState(seed)
-    root = os.path.join(WORK, tag)
-    os.makedirs(os.path.join(root, "assets", "priors"), exist_ok=True)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    x = t(rng.randn(1, N, 3) * 0.3 + [0, 0, 2.2])
+    y = t(rng.randn(1, M, 3) * 0.3 + [0.01, 0, 2.2])
+    full = torch.ones((1, M), dtype=torch.bool, device=device)
+    part = t(rng.rand(1, M) < 0.6, torch.bool)
+    xb = t(rng.randn(3, 129, 3) * 0.3 + [0, 0, 2.2])
+    yb = t(rng.randn(3, 700, 3) * 0.3 + [0, 0, 2.2])
+    vb = t(rng.rand(3, 700) < 0.5, torch.bool)
+    vb[1] = False
+    err = 0.0
+    for label, args in (("unmasked", (x, y, full)), ("masked", (x, y, part)),
+                        ("batch", (xb, yb, vb)),
+                        ("one point", (x[:, :1], y, part))):
+        d_k, i_k = nn_min_sqdist_fwd(*args)
+        d_p, i_p = nn_min_sqdist_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(d_k, d_p) and torch.equal(i_k, i_p)):
+            raise SystemExit(
+                f"K4 kernel != plain version ({label}): "
+                f"{int((d_k != d_p).sum())} distances, "
+                f"{int((i_k != i_p).sum())} indices of {d_k.numel()}")
+        err = max(err, float((d_k - d_p).abs().max()))
+        if label == "batch" and not (bool((d_k[1] == 1e10).all())
+                                     and bool((i_k[1] == 0).all())):
+            raise SystemExit("K4: the all-masked row is not 1e10 / index 0")
+
+    def library():
+        return torch.cdist(x[0], y[0][full[0]]).square().amin(1)
+
+    ms = cuda_ms(lambda: nn_min_sqdist_fwd(x, y, full), 20)
+    plain_ms = host_ms(lambda: nn_min_sqdist_plain(x, y, full))
+    library_ms = cuda_ms(library, 20)
+    lib_err = float((library() - nn_min_sqdist_fwd(x, y, full)[0][0])
+                    .abs().max())
+    bnd = bound(N * M * K4_OPS_PER_PAIR, nbytes(x, y, full) + 8 * N)
+    print(f"K4 at {N} vs {M} points (one cloud a call): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.1f} ms, library (cdist + square + amin, a "
+          f"gather before) {library_ms:.4f} ms (max |diff| to the kernel "
+          f"{lib_err:.3e}), bound {bnd['bound_ms']:.4f} ms by "
+          f"{bnd['bound_by']}; min and argmin bit-equal unmasked, masked, "
+          f"on a batch with an all-masked row and on one point")
+    return {"name": "nn_min_sqdist", "route": "cuda",
+            "source": "vistracker_tpu_torch/csrc/label_nn.cu",
+            "replaces": "vistracker_tpu/ops/pallas_nn.py:28",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
+            "library_ms": library_ms}
+
+
+def write_smpl_pkl(root: str, rng, rings: int, segments: int) -> str:
+    """A synthetic SMPL-H pkl on a closed sphere mesh (84 x 82 rings and
+    segments: 6890 vertices, 13,776 faces); returns its path."""
+    from vistracker_tpu_torch.core.smpl import SMPLH_PARENTS
+
     sv, faces = sphere_mesh(rings, segments)
     V, J = len(sv), 52
     kintree = np.zeros((2, J), np.int64)
@@ -380,6 +455,23 @@ def fabricate(tag: str, frames: int, rings: int, segments: int, seed=0,
     smpl_pkl = os.path.join(root, "SMPLH_male.pkl")
     with open(smpl_pkl, "wb") as f:
         pickle.dump(smpl, f)
+    return smpl_pkl
+
+
+def fabricate(tag: str, frames: int, rings: int, segments: int, seed=0,
+              obj=(35, 36)):
+    """An in-memory BEHAVE-layout sequence (MemoryFrameReader) plus a
+    synthetic SMPL-H pkl, assets and an object template folder on disk
+    under build/chip_smoke/<tag>; returns (reader, smpl_pkl, assets,
+    objects_root)."""
+    from vistracker_tpu_torch.data.behave import MemoryFrameReader
+    from vistracker_tpu_torch.utils.mesh import save_ply
+
+    rng = np.random.RandomState(seed)
+    root = os.path.join(WORK, tag)
+    os.makedirs(os.path.join(root, "assets", "priors"), exist_ok=True)
+    smpl_pkl = write_smpl_pkl(root, rng, rings, segments)
+    V = rings * segments + 2
     assets = os.path.join(root, "assets")
     for name, k in (("body25_regressor", 25), ("face_regressor", 70),
                     ("hand_regressor", 42)):
@@ -558,6 +650,179 @@ def check_infiller(T=215):
         raise SystemExit(f"infiller card vs CPU: max |diff| {err}")
 
 
+def write_eval_packs(root: str, seq: str, T: int, holes=(), seed=5,
+                     identity=False):
+    """A GT pack (axis-angle object rotations) and a recon pack of T frames
+    under root/gt and root/recon_out/recon_track, in the layout `evaluate
+    --split` reads: smooth random SMPL-H and object motion 2.2 m from the
+    camera; the recon adds noise (none for an identity pair, which stores
+    the GT exactly, rotations transposed) and is missing at `holes`.
+    Returns (recon path, GT path)."""
+    from scipy.spatial.transform import Rotation
+    from vistracker_tpu_torch.data.packed import save_packed
+
+    rng = np.random.RandomState(seed)
+    t = np.arange(T)[:, None] / 30.0
+
+    def wave(n, amp):  # n sinusoids of random frequency and phase
+        phase = t * rng.rand(1, n) * 0.5 + rng.rand(1, n)
+        return (amp * np.sin(2 * np.pi * phase)).astype(np.float32)
+
+    poses = wave(156, 0.2)
+    betas = np.tile(rng.randn(1, 10).astype(np.float32) * 0.3, (T, 1))
+    trans = wave(3, 0.1) + np.float32([0.0, 0.0, 2.2])
+    rotvec = wave(3, 0.6)
+    obj_trans = wave(3, 0.1) + np.float32([0.2, 0.0, 2.2])
+    gt = os.path.join(root, "gt", f"{seq}_GT-packed.pkl")
+    save_packed(gt, dict(poses=poses, betas=betas, trans=trans,
+                         obj_angles=rotvec, obj_trans=obj_trans,
+                         obj_scales=np.ones(T, np.float32), gender="male",
+                         frames=[f"t{i:04d}.000" for i in range(T)]))
+    noise = 0.0 if identity else 1.0
+    rots = Rotation.from_rotvec(
+        rotvec + noise * 0.05 * rng.randn(T, 3)).as_matrix()
+    exist = np.ones(T, bool)
+    exist[list(holes)] = False
+    recon = os.path.join(root, "recon_out", "recon_track", f"{seq}_k1.pkl")
+    save_packed(recon, dict(
+        poses=poses + noise * 0.02 * rng.randn(T, 156).astype(np.float32),
+        betas=betas, trans=trans + noise * 0.01 * rng.randn(T, 3)
+        .astype(np.float32),
+        obj_angles=rots.transpose(0, 2, 1).astype(np.float32),
+        obj_trans=obj_trans + noise * 0.01 * rng.randn(T, 3)
+        .astype(np.float32),
+        obj_scales=np.ones(T, np.float32), recon_exist=exist, gender="male",
+        frames=[f"t{i:04d}.000" for i in range(T)]))
+    return recon, gt
+
+
+def check_eval_card_vs_cpu(T=40, window=16, samples=2000):
+    """`evaluate`'s per-sequence work (LBS of the 6890-vertex model, window
+    refits, 2 x 2 K4 chamfers and v2v a frame) on the CPU and on the card,
+    same packs: v2v and acceleration within 1e-4, the chamfers within
+    1e-3, relative (the CPU tests' limits: the chamfers' squared distances
+    cancel values near 10 m^2 in float32, and the two devices' LBS verts,
+    and so the samples, differ in the last bits)."""
+    import torch
+    from vistracker_tpu_torch.cli.main import eval_one
+    from vistracker_tpu_torch.core.smpl import load_smpl_pkl
+    from vistracker_tpu_torch.data.behave import load_template
+    from vistracker_tpu_torch.eval.evaluator import ERROR_KEYS
+    from vistracker_tpu_torch.utils.mesh import save_ply
+
+    root = os.path.join(WORK, "eval_small")
+    os.makedirs(root, exist_ok=True)
+    smpl_pkl = write_smpl_pkl(root, np.random.RandomState(6), 84, 82)
+    save_ply(os.path.join(root, "boxsmall.ply"), *object_mesh())
+    temp_v, temp_f = load_template(root, "boxsmall")
+    holes = [h for h in (3, 17, 18, 33) if h < T]
+    recon, gt = write_eval_packs(root, "Date09_Sub02_boxsmall", T, holes)
+    errs = {}
+    for dev in ("cpu", "cuda"):
+        errs[dev] = eval_one(load_smpl_pkl(smpl_pkl, dev), recon, gt, temp_v,
+                             temp_f, window, False, torch.device(dev),
+                             chamfer_samples=samples)
+    ref, got = errs["cpu"], errs["cuda"]
+    rel = np.abs(got - ref) / np.maximum(np.abs(ref), 1e-12)
+    worst = dict(zip(ERROR_KEYS, rel.max(0).tolist()))
+    print(f"evaluate, {T} frames ({len(ref)} with recon), window {window}, "
+          f"{samples} chamfer samples, card vs CPU max relative |diff|: "
+          f"{json.dumps(worst)}")
+    limits = np.array([1e-3, 1e-3, 1e-4, 1e-4, 1e-4, 1e-4])
+    if got.shape != (T - len(holes), 6) or not np.isfinite(got).all() \
+            or not (rel.max(0) <= limits).all():
+        raise SystemExit(f"evaluate card vs CPU: shape {got.shape}, worst "
+                         f"{worst}, limits {limits.tolist()}")
+
+
+def json_floats(tree):
+    """Every float in a loaded JSON tree."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from json_floats(v)
+    elif isinstance(tree, float):
+        yield tree
+
+
+def run_evaluate_path(fab, track_pack: str) -> int:
+    """`evaluate` through the port's entry point on the card at release
+    settings: (a) the main path's `track` pack against a GT pack of the
+    fabricated sequence's own parameters (its mocap poses and betas, a
+    person 2.2 m from the camera holding the object at rest), single-
+    sequence mode with --angles; (b) split mode over a 900-frame recon
+    with 5% recon_exist holes (three windows of 300) and a 30-frame
+    identity pair. Before each run K4's count is set to 0; after it, it
+    must read 4 per evaluated frame. Returns K4's launches over both."""
+    import torch
+    from vistracker_tpu_torch.cli.main import build_parser, run_evaluate
+    from vistracker_tpu_torch.data.packed import load_packed, save_packed
+    from vistracker_tpu_torch.eval.evaluator import ERROR_KEYS
+    from vistracker_tpu_torch.ops import chamfer
+
+    reader, smpl_pkl, _, objects = fab
+    root = os.path.join(WORK, "evaluate")
+    T = len(load_packed(track_pack)["poses"])
+    poses, betas = (np.stack(a) for a in zip(
+        *(reader.get_mocap_params(i, 1) for i in range(T))))
+    gt = os.path.join(root, "gt", f"{reader.seq_name}_GT-packed.pkl")
+    save_packed(gt, dict(
+        poses=np.concatenate([poses, np.zeros((T, 84), np.float32)], 1),
+        betas=betas, trans=np.tile(np.float32([0, 0, 2.2]), (T, 1)),
+        obj_angles=np.zeros((T, 3), np.float32),
+        obj_trans=np.tile(np.float32([0.2, 0, 2.2]), (T, 1)),
+        obj_scales=np.ones(T, np.float32), gender="male",
+        frames=list(reader.frames)))
+    hole_rng = np.random.RandomState(7)
+    holes = np.flatnonzero(hole_rng.rand(900) < 0.05)
+    write_eval_packs(root, "Date09_Sub03_boxsmall", 900, holes, seed=8)
+    write_eval_packs(root, "Date09_Sub04_boxsmall", 30, seed=9,
+                     identity=True)
+    split = os.path.join(root, "split.json")
+    with open(split, "w") as f:
+        json.dump({"seqs": ["Date09_Sub03_boxsmall",
+                            "Date09_Sub04_boxsmall"]}, f)
+    runs = (("track pack, single-sequence, --angles",
+             ["--recon", track_pack, "--gt", gt, "--template",
+              os.path.join(objects, "boxsmall", "boxsmall.ply"), "--angles"]),
+            ("900 + 30 frames, split",
+             ["--split", split, "--gt-root", os.path.join(root, "gt"),
+              "--recon-root", os.path.join(root, "recon_out"),
+              "--objects-root", objects]))
+    total = 0
+    for label, args in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        chamfer.nn_min_sqdist_fwd.launches = 0
+        t0 = time.perf_counter()
+        outfile = run_evaluate(build_parser().parse_args(
+            ["evaluate", *args, "--smpl-model", smpl_pkl, "--out",
+             os.path.join(root, "results")]))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = chamfer.nn_min_sqdist_fwd.launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(outfile) as f:
+            res = json.load(f)
+        n = res["total"]
+        means = {k: res[k]["mean"] for k in (*ERROR_KEYS, "rot_error")
+                 if k in res}
+        print(f"evaluate ({label}): {n} frames evaluated in {sec:.3f} s "
+              f"({sec / n:.4f} s a frame), peak {peak:.2f} GiB; K4 launches "
+              f"{launches}; mean errors {json.dumps(means)}")
+        if launches == 0 or launches != 4 * n:
+            raise SystemExit(f"evaluate ({label}): K4 launched {launches} "
+                             f"times for {n} frames (want 4 a frame)")
+        if not np.isfinite(list(json_floats(res))).all():
+            raise SystemExit(f"evaluate ({label}): non-finite errors")
+        total += launches
+    ident = res["separate"]["Date09_Sub04_boxsmall"]
+    if not (ident["smpl_v2v"]["mean"] < 1e-3 and ident["obj_v2v"]["mean"]
+            < 1e-3):
+        raise SystemExit(f"evaluate: the identity pair's v2v is not 0: "
+                         f"{ident}")
+    return total
+
+
 class PhaseProbe:
     """Wraps fit/joint.py:_adam_phase for the main path's non-vacuity
     checks: the object translation each chunk's first object phase starts
@@ -611,15 +876,16 @@ class LaunchCounts:
     mask's."""
 
     def __init__(self):
-        from vistracker_tpu_torch.ops import coverage, label_nn
-        self.cov, self.nn = coverage, label_nn
+        from vistracker_tpu_torch.ops import chamfer, coverage, label_nn
+        self.cov, self.nn, self.chamfer = coverage, label_nn, chamfer
 
     def read(self) -> dict:
         soft = self.cov._MaxLogit.fwd_launches
         return {"max_logit_fwd": self.cov.max_logit_fwd.launches - soft,
                 "max_logit_fwd_soft": soft,
                 "max_logit_bwd": self.cov.max_logit_bwd.launches,
-                "label_nn": self.nn.label_nn_fwd.launches}
+                "label_nn": self.nn.label_nn_fwd.launches,
+                "nn_min_sqdist": self.chamfer.nn_min_sqdist_fwd.launches}
 
     def write(self, counts: dict):
         self.cov._MaxLogit.fwd_launches = counts["max_logit_fwd_soft"]
@@ -627,6 +893,7 @@ class LaunchCounts:
                                            + counts["max_logit_fwd_soft"])
         self.cov.max_logit_bwd.launches = counts["max_logit_bwd"]
         self.nn.label_nn_fwd.launches = counts["label_nn"]
+        self.chamfer.nn_min_sqdist_fwd.launches = counts["nn_min_sqdist"]
 
 
 def occlude_few_infiller():
@@ -654,10 +921,10 @@ def occlude_few_infiller():
 
 
 def run_main_path(frames: int, chunk: int, device="cuda", extra=(),
-                  mesh=(84, 82)) -> dict:
+                  mesh=(84, 82)):
     """The whole `track` at release width on the card, `frames` frames in
     chunks of `chunk`; every kernel's count set to 0 just before. Returns
-    the launch counts."""
+    (the launch counts, the fabricated sequence, the pack's path)."""
     import torch
     from vistracker_tpu_torch.fit import joint as joint_mod
 
@@ -706,7 +973,7 @@ def run_main_path(frames: int, chunk: int, device="cuda", extra=(),
           f"{summary['iters_joint_mean']}; launches {json.dumps(launches)}")
     for stage, sec in summary["stage_seconds"].items():
         print(f"  {stage}: {sec:.3f} s, peak {peaks[stage]:.2f} GiB")
-    return launches
+    return launches, fab, summary["packed"]
 
 
 def main():
@@ -717,7 +984,7 @@ def main():
                          "counted, each further one runs in one chunk")
     ap.add_argument("--chunk", type=int, default=16)
     ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after the kernel checks (phases 1-4); "
+                    help="stop after the kernel checks (phases 1-5); "
                          "prints no result line")
     opts = ap.parse_args()
     import torch
@@ -742,16 +1009,18 @@ def main():
 
     device = torch.device("cuda")
     records = [check_k1(device, frames=opts.chunk), *check_sil(device),
-               check_k3(device)]
+               check_k3(device), check_k4(device)]
     if opts.kernels_only:
         print(json.dumps({"kernels": records}))
         sys.exit(3)
     check_small_cpu_vs_card()
     check_infiller()
+    check_eval_card_vs_cpu()
 
-    launches = run_main_path(opts.frames[0], opts.chunk)
+    launches, fab, track_pack = run_main_path(opts.frames[0], opts.chunk)
     for frames in opts.frames[1:]:
         run_main_path(frames, frames)
+    launches["nn_min_sqdist"] = run_evaluate_path(fab, track_pack)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if rec["launches"] < 1:

@@ -274,7 +274,12 @@ def test_import_leaves_jax_out():
             " vistracker_tpu_torch.models.infiller,"
             " vistracker_tpu_torch.fit.smoothing,"
             " vistracker_tpu_torch.fit.infill,"
-            " vistracker_tpu_torch.fit.joint, chip_smoke;"
+            " vistracker_tpu_torch.fit.joint,"
+            " vistracker_tpu_torch.fit.interpolate,"
+            " vistracker_tpu_torch.ops.chamfer,"
+            " vistracker_tpu_torch.eval.metrics,"
+            " vistracker_tpu_torch.eval.evaluator,"
+            " vistracker_tpu_torch.data.packed, chip_smoke;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'flax', 'optax', 'vistracker_tpu', 'PIL', 'joblib')];"
             " print(bad); sys.exit(1 if bad else 0)")

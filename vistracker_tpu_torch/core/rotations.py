@@ -122,6 +122,32 @@ def rot6d_to_axis_angle(x: torch.Tensor) -> torch.Tensor:
     return rotmat_to_axis_angle(rot6d_to_rotmat(x))
 
 
+def quat_slerp(q0: torch.Tensor, q1: torch.Tensor,
+               t: torch.Tensor) -> torch.Tensor:
+    """Shortest-arc spherical interpolation between unit quaternions
+    (..., 4), t broadcastable to (...,) or (..., 1). As the JAX version:
+    for dot(q0, q1) < 0 it takes the true shortest arc (q1 flipped, angle
+    from |dot|) where the reference slerp keeps the obtuse half-angle in
+    its weights; where |dot| > 0.9995 it lerps."""
+    q0 = q0 / torch.linalg.norm(q0, dim=-1, keepdim=True)
+    q1 = q1 / torch.linalg.norm(q1, dim=-1, keepdim=True)
+    dot = (q0 * q1).sum(-1, keepdim=True)
+    q1 = torch.where(dot < 0.0, -q1, q1)
+    dot = torch.clamp(dot.abs(), -1.0, 1.0)
+    theta = torch.acos(dot)
+    sin_theta = torch.sin(theta)
+    t = torch.as_tensor(t, dtype=q0.dtype, device=q0.device)
+    if t.dim() == q0.dim() - 1:
+        t = t[..., None]
+    use_lerp = dot > 0.9995
+    safe_sin = torch.where(use_lerp, torch.ones_like(sin_theta), sin_theta)
+    w0 = torch.where(use_lerp, 1.0 - t,
+                     torch.sin((1.0 - t) * theta) / safe_sin)
+    w1 = torch.where(use_lerp, t, torch.sin(t * theta) / safe_sin)
+    out = w0 * q0 + w1 * q1
+    return out / torch.linalg.norm(out, dim=-1, keepdim=True)
+
+
 def project_so3(mat: torch.Tensor) -> torch.Tensor:
     """Project (..., 3, 3) matrices onto SO(3): U diag(1, 1, det(U Vt)) Vt
     from the SVD, so the result is a proper rotation. Differentiable (the

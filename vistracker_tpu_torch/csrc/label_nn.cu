@@ -1,11 +1,14 @@
 // K3: labelled nearest neighbour -- per x point the min squared distance
 // to the valid y points of the same label, and the index of the first y
-// point that attains it.
+// point that attains it. K4: the same without labels.
 //
-// Replaces the TPU kernel vistracker_tpu/ops/pallas_nn.py:_labelnn_kernel
-// (pallas_call in _labelnn_call), the contact-pairing primitive of the
-// stage-6 joint phase. For x (B, N, 3), y (B, M, 3), integer labels and a
-// validity flag per y point:
+// K3 replaces the TPU kernel vistracker_tpu/ops/pallas_nn.py:
+// _labelnn_kernel (pallas_call in _labelnn_call), the contact-pairing
+// primitive of the stage-6 joint phase; entry vt_label_nn. K4 replaces
+// pallas_nn.py:_nn_kernel (pallas_call in nn_min_sqdist_pallas, behind
+// chamfer_pallas), the y-masked min of the evaluation chamfer; entry
+// vt_nn_min. For x (B, N, 3), y (B, M, 3), integer labels (K3 only) and
+// a validity flag per y point:
 //     d_ij   = max((|x_i|^2 + |y_j|^2) - 2 (x_i . y_j), 0)
 //     min_i  = min over j with valid_j and label_j == label_i of d_ij,
 //              1e10 when there is no such j
@@ -28,13 +31,16 @@
 // plain FP32 instructions, no tensor cores (reduced-precision products
 // flip argmins).
 //
-// Bound on an H100: N x M pairs per batch element at 13 fp32 operations a
-// pair (5 for x.y, 3 for the distance, 1 max, 2 for the mask, 2 for the
-// running min) against 67 TFLOP/s; the bytes (both clouds, labels,
-// validity, two outputs) are far smaller.
+// Bound on an H100: N x M pairs per batch element at 12 fp32 operations a
+// pair for K3 (5 for x.y, 3 for the distance, 2 for the mask, 2 for the
+// running min; the max at 0 is not counted) and 11 for K4 (no label
+// compare) against 67 TFLOP/s; the bytes (both clouds, labels, validity,
+// two outputs) are far smaller.
 //
-// The label test is a template parameter: the unlabelled, y-masked min of
-// the evaluation chamfer is this kernel with the test compiled out.
+// The label test is a template parameter: K4 is this kernel with the test
+// compiled out; it reads and indexes no label array (null pointers). One
+// thread per x point underfills the card at B = 1 (the evaluation's
+// 10,000 points are 79 blocks of 128 threads on 132 SMs).
 
 #include <cuda_runtime.h>
 
@@ -66,9 +72,13 @@ label_nn_kernel(const float* __restrict__ x, const int* __restrict__ lx,
   const long long xi = static_cast<long long>(b_idx) * n + (has_point ? i : 0);
   const float x0 = x[xi * 3], x1 = x[xi * 3 + 1], x2 = x[xi * 3 + 2];
   const float xx = sq_norm(x0, x1, x2);
-  const int label = kLabels ? lx[xi] : 0;
+  int label = 0;
+  const int* lb = nullptr;
+  if constexpr (kLabels) {
+    label = lx[xi];
+    lb = ly + static_cast<long long>(b_idx) * m;
+  }
   const float* yb = y + static_cast<long long>(b_idx) * m * 3;
-  const int* lb = ly + static_cast<long long>(b_idx) * m;
   const unsigned char* vb = y_valid + static_cast<long long>(b_idx) * m;
 
   float best = kNone;
@@ -80,7 +90,7 @@ label_nn_kernel(const float* __restrict__ x, const int* __restrict__ lx,
       const float y0 = yb[(j0 + j) * 3], y1 = yb[(j0 + j) * 3 + 1];
       const float y2 = yb[(j0 + j) * 3 + 2];
       ys[j] = make_float4(y0, y1, y2, sq_norm(y0, y1, y2));
-      ls[j] = kLabels ? lb[j0 + j] : 0;
+      if constexpr (kLabels) ls[j] = lb[j0 + j];
       vs[j] = vb[j0 + j];
     }
     __syncthreads();
@@ -91,7 +101,8 @@ label_nn_kernel(const float* __restrict__ x, const int* __restrict__ lx,
           __fmul_rn(x2, q.z));
       float d = fmaxf(__fsub_rn(__fadd_rn(xx, q.w), __fmul_rn(2.0f, xy)),
                       0.0f);
-      const bool ok = vs[j] != 0 && (!kLabels || ls[j] == label);
+      bool ok = vs[j] != 0;
+      if constexpr (kLabels) ok = ok && ls[j] == label;
       d = ok ? d : kNone;
       if (d < best) {
         best = d;
@@ -121,5 +132,21 @@ extern "C" int vt_label_nn(const float* x, const int* lx, const float* y,
   label_nn_kernel<true><<<grid, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       x, lx, y, ly, y_valid, min_out, idx_out, n, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4: x (B, N, 3) f32, y (B, M, 3) f32, y_valid (B, M) uint8, min_out
+// (B, N) f32, idx_out (B, N) int32. Returns cudaGetLastError() after the
+// launch.
+extern "C" int vt_nn_min(const float* x, const float* y,
+                         const unsigned char* y_valid, float* min_out,
+                         int* idx_out, int batch, int n, int m, void* stream) {
+  if (batch < 1 || n < 1 || m < 1 || batch > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((n + kThreads - 1) / kThreads, batch);
+  label_nn_kernel<false><<<grid, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      x, nullptr, y, nullptr, y_valid, min_out, idx_out, n, m);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,6 @@
 """Autoregressive object-pose infilling with HVOP-Net (pipeline stage 5).
 
-Port of vistracker_tpu/fit/infill.py (without downstream_recon_eval,
-which belongs to the evaluation tools):
+Port of vistracker_tpu/fit/infill.py:
   * inputs: SMPL stream = 24-joint rot6d (144) + trans (3); object stream
     = rot6d (6) of the smoothed rotations, zeroed on occluded frames;
   * occlusion mask = predicted visibility < occ_thres (0.5); the first
@@ -106,3 +105,55 @@ def make_infiller(model, cfg: InfillerConfig = InfillerConfig()):
         return rots
 
     return run
+
+
+def downstream_recon_eval(run_infill, seqs, occ_thres: float = 0.5,
+                          init_thres: float = 0.5, samples: int = 2000,
+                          seed: int = 0, device="cuda") -> dict:
+    """Downstream evaluation of an infiller during training: run the whole
+    autoregressive infill on held-out sequences and measure the object
+    chamfer and v2v (cm) on the OCCLUDED frames (visibility <= occ_thres)
+    against GT rotations; the chamfer runs on `device`.
+
+    run_infill(poses, trans, obj_rot_real, occ, occ_thres=, init_thres=)
+    is what make_infiller returns. seqs: dicts with poses (T, 72/156),
+    trans (T, 3), obj_rot_real (T, 3, 3) input rotations, obj_rot_gt
+    (T, 3, 3) GT REAL rotations, occ (T,) visibility ratios, temp_verts
+    (V, 3) and temp_faces (F, 3). Returns {downstream_chamfer_cm,
+    downstream_v2v_cm} averaged over the occluded frames of all
+    sequences, {} when none was evaluated.
+    """
+    from ..ops.chamfer import chamfer_distance
+    from ..utils.mesh import sample_surface
+    v2v_all, chamf_all = [], []
+    for si, seq in enumerate(seqs):
+        occ = np.asarray(seq["occ"]).reshape(-1)
+        filled = run_infill(seq["poses"], seq["trans"], seq["obj_rot_real"],
+                            occ, occ_thres=occ_thres, init_thres=init_thres)
+        if filled is None:  # unreliable seeds: pass-through, skipped
+            continue
+        keep = occ <= occ_thres
+        if not keep.any():
+            continue
+        tv = np.asarray(seq["temp_verts"], np.float32)
+        rot_gt = np.asarray(seq["obj_rot_gt"])[keep]
+        # rotation only: the template turned by each rotation
+        ov_pred = np.einsum("vj,tij->tvi", tv, filled[keep])
+        ov_gt = np.einsum("vj,tij->tvi", tv, rot_gt)
+        v2v_all.extend(
+            (np.linalg.norm(ov_pred - ov_gt, axis=-1).mean(1) * 100.0)
+            .tolist())
+        # one fixed set of template samples for every frame
+        sp = sample_surface(tv, np.asarray(seq["temp_faces"]), samples,
+                            np.random.RandomState(seed + si))
+        sp_pred = np.einsum("vj,tij->tvi", sp, filled[keep])
+        sp_gt = np.einsum("vj,tij->tvi", sp, rot_gt)
+        ch = chamfer_distance(
+            torch.as_tensor(sp_pred.astype(np.float32), device=device),
+            torch.as_tensor(sp_gt.astype(np.float32), device=device),
+            w1=0.5, w2=0.5) * 100.0
+        chamf_all.extend(ch.cpu().tolist())
+    if not v2v_all:
+        return {}
+    return {"downstream_chamfer_cm": float(np.mean(chamf_all)),
+            "downstream_v2v_cm": float(np.mean(v2v_all))}

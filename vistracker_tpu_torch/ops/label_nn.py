@@ -49,32 +49,41 @@ def _check(x, labels_x, y, labels_y, y_valid):
         raise ValueError("all inputs must share a device")
 
 
-def label_nn_plain(x, labels_x, y, labels_y, y_valid):
-    """Plain PyTorch K3: (min squared distance (B, N) float32, argmin
-    (B, N) int64). Each operation is rounded once, in the kernel's order:
-    x.y = (x0 y0 + x1 y1) + x2 y2, d = max((|x|^2 + |y|^2) - 2 x.y, 0);
-    the argmin is the least index attaining the min, 0 where no y point
-    is compatible."""
-    _check(x, labels_x, y, labels_y, y_valid)
-    B, N, _ = x.shape
-    M = y.shape[1]
+def masked_min_plain(x, y, y_valid, labels_x=None, labels_y=None,
+                     rows: int = _PLAIN_ROWS):
+    """The plain version of kernels K3 (with labels) and K4 (without), on
+    checked inputs: (min squared distance (B, N) float32, argmin (B, N)
+    int64), `rows` x points at a time. Each operation is rounded once, in
+    the kernel's order: x.y = (x0 y0 + x1 y1) + x2 y2, d = max((|x|^2 +
+    |y|^2) - 2 x.y, 0); a y point counts where y_valid (and its label is
+    x's); the argmin is the least index attaining the min, 0 where no y
+    point counts."""
+    N, M = x.shape[1], y.shape[1]
     yy = _sq_norm(y)[:, None, :]
     col = torch.arange(M, device=x.device)
     none = torch.tensor(_NONE, dtype=torch.float32, device=x.device)
     mins, idxs = [], []
-    for s in range(0, N, _PLAIN_ROWS):
-        xc = x[:, s:s + _PLAIN_ROWS]
+    for s in range(0, N, rows):
+        xc = x[:, s:s + rows]
         xy = (xc[:, :, None, 0] * y[:, None, :, 0]
               + xc[:, :, None, 1] * y[:, None, :, 1]) \
             + xc[:, :, None, 2] * y[:, None, :, 2]
         d = torch.clamp((_sq_norm(xc)[:, :, None] + yy) - 2.0 * xy, min=0.0)
-        ok = y_valid[:, None, :] & (labels_x[:, s:s + _PLAIN_ROWS, None]
-                                    == labels_y[:, None, :])
+        ok = y_valid[:, None, :]
+        if labels_x is not None:
+            ok = ok & (labels_x[:, s:s + rows, None] == labels_y[:, None, :])
         d = torch.where(ok, d, none)
         m = d.amin(-1)
         mins.append(m)
         idxs.append(torch.where(d <= m[..., None], col, M).amin(-1))
     return torch.cat(mins, 1), torch.cat(idxs, 1)
+
+
+def label_nn_plain(x, labels_x, y, labels_y, y_valid):
+    """Plain PyTorch K3: (min squared distance (B, N) float32, argmin
+    (B, N) int64) over the valid y points of x's label (masked_min_plain)."""
+    _check(x, labels_x, y, labels_y, y_valid)
+    return masked_min_plain(x, y, y_valid, labels_x, labels_y)
 
 
 def label_nn_fwd(x, labels_x, y, labels_y, y_valid):
