@@ -14,11 +14,21 @@ Phases (any failure exits non-zero):
      at the stage-6 shape -- 16 views of a 2,500-face decimated closed
      mesh at 256^2, sigma 1/128: m and cnt bit-equal to the plain
      version, the plane cotangent within a stated tolerance of
-     max_logit_bwd_plain and exactly 0 on dead rows;
+     max_logit_bwd_plain, exactly 0 on dead rows and the same bits on two
+     runs; also on one view and with every cell dead (dc 0); K2's bound
+     over the work these inputs need (its skip test, the pairs it walks)
+     and over all faces of live cells;
   4. kernel K3 (csrc/label_nn.cu) at (16, 6890, 3) vs (16, 3000, 3), 14
-     labels, partial validity, both directions, requiring min and argmin
-     bit-equal to label_nn_plain, rows without a compatible point
-     included; the scatter of its gradient twice, for run-to-run equality;
+     labels, both directions: with 30% validity, with all points valid
+     (the main path's density) and in the dense worst case (all valid,
+     one label), requiring min and argmin bit-equal to label_nn_plain,
+     rows without a compatible point included; adversarial rows (exact
+     ties across tiles and warp slices, an element without valid y,
+     ragged sizes, a label span the plan leaves in index order), the plan
+     kernel equal to the plain plan; the scatter of its gradient twice,
+     for run-to-run equality; times with the plan made inside and given
+     (three event readings each, and device time from a CUDA graph), the
+     bound over the compatible pairs and over all pairs;
   5. kernel K4 (csrc/label_nn.cu, entry vt_nn_min) at the evaluate shape
      -- 10,000 x 10,000 surface samples at metre scale, one cloud a call
      -- unmasked and with a partial y-mask, on a small batch with an
@@ -39,9 +49,10 @@ Phases (any failure exits non-zero):
      .ply), two chunks of 16, release SIF-Net, SmoothNets and HVOP-Net
      with random weights from a seed, full budgets of every stage, on the
      card, with every kernel's launch count set to 0 before and read
-     after; visibility, the silhouette phase's first gradient and the
-     object translation's movement must be non-zero, the object rotations
-     proper. Each further --frames value runs it again with that many
+     after, and K3's compatible-pair share counted from each chunk's
+     frozen contact masks; visibility, the silhouette phase's first
+     gradient and the object translation's movement must be non-zero, the
+     object rotations proper. Each further --frames value runs it again with that many
      frames in one chunk, to read per-stage peak device memory;
  10. `evaluate` through the port's entry point at release settings (10,000
      chamfer samples, window 300) on the card: the pack the main path's
@@ -78,6 +89,9 @@ K1_OPS_PER_ROW_FACE = 10    # the row terms b*py + c: 5 FMAs
 # K2 recomputes K1's planes and compares with the saved max (winners are
 # one or two faces a pixel: their few extra operations are not counted)
 K2_OPS_PER_PIXEL_FACE = 15
+# K2's skip test a (face, row, 16-column chunk): 5 planes at the chunk's
+# two end pixels (10 FMAs) + 5 max + 4 min + 1 compare with the chunk's m
+K2_OPS_PER_CHUNK_TEST = 30
 # x.y 5, distance 3, mask 2, running min 2; the clamp at 0 is not counted
 # (apart from the order of ties at 0 it could follow the min)
 K3_OPS_PER_PAIR = 12
@@ -105,6 +119,48 @@ def sphere_mesh(rings: int, segments: int, radius: float = 0.4):
     last = len(verts) - 1
     faces.append(np.stack([np.full(segments, last), idx[-1], nxt[-1]], -1))
     return verts.astype(np.float32), np.concatenate(faces).astype(np.int32)
+
+
+def sass_loops(name: str) -> list:
+    """Innermost loops of each kernel in build/kernels/lib<name>_*.so, from
+    `cuobjdump -sass` where the toolkit has it: per loop (kernel, SASS
+    instructions on the path that takes every forward branch inside the
+    loop -- the path without a winner or a new minimum -- and FMNMX among
+    them). A K3/K4 pair clamps once (one FMNMX); a K2 (pixel, face) takes
+    4 mins of 5 planes: instructions per unit of work are path / FMNMX
+    (x 4 for K2)."""
+    import re
+    import shutil
+    from vistracker_tpu_torch.utils.cuda_build import _lib_path
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not (os.path.exists(tool) and _lib_path(name).is_file()):
+        return []
+    text = subprocess.run([tool, "-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, timeout=120).stdout
+    loops = []
+    for part in text.split("Function : ")[1:]:
+        kernel = part.split()[0]
+        ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)
+        where = {int(a, 16): k for k, (a, _) in enumerate(ins)}
+        ops = [t.split()[1] if t.startswith("@") else t.split()[0]
+               for _, t in ins]
+        jumps = {}  # branch index -> target index
+        for k, (_, t) in enumerate(ins):
+            hit = re.search(r"\bBRA\s+0x([0-9a-f]+)", t)
+            if hit and int(hit.group(1), 16) in where:
+                jumps[k] = where[int(hit.group(1), 16)]
+        back = [(t, k) for k, t in jumps.items() if t < k]
+        for lo, hi in back:
+            if any(lo <= a and b <= hi and (a, b) != (lo, hi)
+                   for a, b in back):
+                continue  # not innermost
+            skip = {i for k, t in jumps.items() if lo <= k < t <= hi
+                    for i in range(k + 1, t)}
+            path = [ops[i] for i in range(lo, hi + 1) if i not in skip]
+            if "FMNMX" in path:
+                loops.append((kernel, len(path), path.count("FMNMX")))
+    return loops
 
 
 def host_ms(fn) -> float:
@@ -137,6 +193,27 @@ def cuda_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device time of one call: `reps` calls captured in one CUDA graph and
+    replayed, so the host's launch overhead is out of the timing (for
+    kernels whose launches take less time than the Python around them)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -219,6 +296,91 @@ def object_mesh(rings=35, segments=36):
     return verts * np.array([0.15, 0.10, 0.06], np.float32), faces
 
 
+def k2_equal(label, cpl, active, m, gw, size, n_faces):
+    """K2 against max_logit_bwd_plain on one input: within 1e-5 of the
+    largest entry (the two sum a face's pixels in another order: kernel
+    columns, rows, column groups, cells; plain torch's tree reductions),
+    dead and padding rows exactly 0, and the same bits on a second run.
+    With no live cell dc must be 0 everywhere. Returns (max |diff|, max
+    |dc|)."""
+    import torch
+    from vistracker_tpu_torch.ops.coverage import (max_logit_bwd,
+                                                   max_logit_bwd_plain)
+
+    dc_k = max_logit_bwd(cpl, active, m, gw, size)
+    again = max_logit_bwd(cpl, active, m, gw, size)
+    dc_p = max_logit_bwd_plain(cpl, active, m, gw, size)
+    torch.cuda.synchronize()
+    scale = float(dc_p.abs().max())
+    err = float((dc_k - dc_p).abs().max())
+    dead = float(dc_k[:, n_faces:].abs().max()) if cpl.shape[1] > n_faces \
+        else 0.0
+    live = bool(active.any())
+    if not (torch.equal(dc_k, again) and np.isfinite(err)
+            and err <= 1e-5 * scale and dead == 0.0
+            and (scale > 0) == live):
+        raise SystemExit(f"K2 kernel vs plain ({label}): max |diff| "
+                         f"{err:.3e} against max |dc| {scale:.3e} (limit "
+                         f"1e-5 of it), dead rows max {dead}, run to run "
+                         f"equal {torch.equal(dc_k, again)}, live {live}")
+    return err, scale
+
+
+def k2_walk_share(cpl, active, m, size, chunk=16):
+    """K2's work on these inputs: its (face, row, 16-column chunk) triples
+    of live cells (each takes the bound test), the (pixel, face) pairs of
+    those whose test does not skip them (csrc/max_logit_bwd.cu walks them
+    pixel by pixel), and the share of (32-face warp, row, chunk) triples
+    where any face's does (the warp walks then): the kernel's test, in the
+    plain version's fma32 arithmetic. Returns a dict of the counts."""
+    import torch
+    from vistracker_tpu_torch.ops.coverage import _FBLK, _RBLK, _xblk, fma32
+
+    B, Fp, _ = cpl.shape
+    xblk = _xblk(size)
+    n_x, n_fblk = size // xblk, Fp // _FBLK
+    live = active.reshape(B, size // _RBLK, n_x, n_fblk) != 0
+    col = torch.arange(size, dtype=torch.float32, device=cpl.device)
+    coord = fma32(col, torch.full_like(col, 2.0 / (size - 1)),
+                  torch.full_like(col, -1.0))
+    starts = list(range(0, xblk, chunk))
+    ends = [min(s + chunk, xblk) for s in starts]
+    first = torch.tensor(starts, device=cpl.device)
+    last = torch.tensor(ends, device=cpl.device) - 1
+    width = last - first + 1
+    faces = warps = walked = walked_px = walked_warps = 0
+    for b in range(B):
+        a, bb, c = (cpl[b, :, k::3][:, None, None, :] for k in range(3))
+        for r in range(size // _RBLK):
+            if not bool(live[b, r].any()):
+                continue
+            py = coord[r * _RBLK:(r + 1) * _RBLK][None, :, None, None]
+            inner = fma32(bb, py, c)                       # (F', 8, 1, 5)
+            for x in range(n_x):
+                cells = live[b, r, x].repeat_interleave(_FBLK)
+                if not bool(cells.any()):
+                    continue
+                px0, px1 = (coord[x * xblk + i][None, None, :, None]
+                            for i in (first, last))
+                bound = torch.maximum(fma32(a, px0, inner),
+                                      fma32(a, px1, inner)).amin(-1)
+                mrow = m[b, r * _RBLK:(r + 1) * _RBLK,
+                         x * xblk:(x + 1) * xblk]
+                mmin = torch.stack([mrow[:, s:e].amin(1)
+                                    for s, e in zip(starts, ends)], 1)
+                walk = (bound >= mmin) & cells[:, None, None]
+                faces += int(cells.sum()) * _RBLK * len(starts)
+                walked += int(walk.sum())
+                walked_px += int((walk * width).sum())
+                warps += int(cells.sum()) // 32 * _RBLK * len(starts)
+                walked_warps += int(walk.reshape(Fp // 32, 32, _RBLK, -1)
+                                    .any(1).sum())
+    return {"triples": faces, "walked": walked,
+            "walked_pixel_faces": walked_px,
+            "share": walked / max(faces, 1),
+            "warp_share": walked_warps / max(warps, 1)}
+
+
 def check_sil(device, views=16, size=256, sigma=1.0 / 128.0, seed=1):
     """K1 (soft-silhouette use) and K2 against their plain versions at the
     stage-6 shape. Returns the two kernel records."""
@@ -251,21 +413,14 @@ def check_sil(device, views=16, size=256, sigma=1.0 / 128.0, seed=1):
     g = torch.as_tensor(rng.randn(views, size, size), dtype=torch.float32,
                         device=device) * prob * (1 - prob) / sigma
     gw = (g / torch.clamp(c_k, min=1.0)).contiguous()
-    dc_k = max_logit_bwd(cpl, active, m_k, gw, size)
-    dc_p = max_logit_bwd_plain(cpl, active, m_k, gw, size)
-    torch.cuda.synchronize()
-    # the two sum a face's pixels in another order (kernel: pixels of a
-    # row, rows, strips in sequence; plain: torch's tree reductions), so
-    # they agree to float32 summation error: 1e-5 of the largest entry
-    scale = float(dc_p.abs().max())
-    err = float((dc_k - dc_p).abs().max())
-    dead = float(dc_k[:, n_faces:].abs().max()) if Fp > n_faces else 0.0
-    if not (scale > 0 and np.isfinite(err) and err <= 1e-5 * scale
-            and dead == 0.0):
-        raise SystemExit(f"K2 kernel vs plain: max |diff| {err:.3e} against "
-                         f"max |dc| {scale:.3e} (limit 1e-5 of it), dead "
-                         f"rows max {dead}")
+    err, scale = k2_equal("16 views", cpl, active, m_k, gw, size, n_faces)
+    n_strips = size // _RBLK
+    k2_equal("one view", cpl[:1], active[:n_strips], m_k[:1], gw[:1], size,
+             n_faces)
+    k2_equal("every cell dead", cpl, torch.zeros_like(active), m_k, gw, size,
+             n_faces)
     live = int(active.sum())
+    walk = k2_walk_share(cpl, active, m_k, size)
     ops_cell = _FBLK * _RBLK * (_xblk(size) * K1_OPS_PER_PIXEL_FACE
                                 + K1_OPS_PER_ROW_FACE)
     img = views * size * size * 4
@@ -273,22 +428,36 @@ def check_sil(device, views=16, size=256, sigma=1.0 / 128.0, seed=1):
            "plain_ms": host_ms(lambda: max_logit_fwd_plain(cpl, active,
                                                            size)),
            **bound(live * ops_cell, nbytes(cpl, active) + 2 * img)}
+    # the bound counts what these inputs need: the row terms and the skip
+    # test of every face of a live cell, the walk of the (pixel, face)
+    # pairs whose test does not skip them; all faces at every pixel of a
+    # live cell beside it
+    bwd_bytes = 2 * nbytes(cpl) + nbytes(active) + 2 * img
     bwd = {"ms": cuda_ms(lambda: max_logit_bwd(cpl, active, m_k, gw, size),
                          20),
            "plain_ms": host_ms(lambda: max_logit_bwd_plain(cpl, active, m_k,
                                                            gw, size)),
-           **bound(live * _FBLK * _RBLK
-                   * (_xblk(size) * K2_OPS_PER_PIXEL_FACE
-                      + K1_OPS_PER_ROW_FACE),
-                   2 * nbytes(cpl) + nbytes(active) + 2 * img)}
+           **bound(live * _FBLK * _RBLK * K1_OPS_PER_ROW_FACE
+                   + walk["triples"] * K2_OPS_PER_CHUNK_TEST
+                   + walk["walked_pixel_faces"] * K2_OPS_PER_PIXEL_FACE,
+                   bwd_bytes)}
+    all_faces = bound(live * _FBLK * _RBLK
+                      * (_xblk(size) * K2_OPS_PER_PIXEL_FACE
+                         + K1_OPS_PER_ROW_FACE), bwd_bytes)
     print(f"K1 soft + K2 at {views} views x {n_faces} faces (padded {Fp}) x "
           f"{size}^2, sigma {sigma:.5f}: live cells {live} of "
           f"{active.numel()}; forward {fwd['ms']:.4f} ms (plain "
           f"{fwd['plain_ms']:.1f} ms, bound {fwd['bound_ms']:.4f} ms by "
           f"{fwd['bound_by']}), m and cnt bit-equal; backward "
           f"{bwd['ms']:.4f} ms (plain {bwd['plain_ms']:.1f} ms, bound "
-          f"{bwd['bound_ms']:.4f} ms by {bwd['bound_by']}), max |diff| "
-          f"{err:.3e} of max |dc| {scale:.3e}, dead rows 0")
+          f"{bwd['bound_ms']:.4f} ms by {bwd['bound_by']} over the work "
+          f"these inputs need, all-faces bound {all_faces['bound_ms']:.4f} "
+          f"ms), max |diff| {err:.3e} of max |dc| {scale:.3e}, dead rows 0, "
+          "two runs equal; one view and every cell dead (dc 0) checked too;"
+          f" K2 walks {walk['walked']} of its {walk['triples']} (face, row,"
+          f" 16-column chunk) triples ({walk['share']:.2%}; "
+          f"{walk['walked_pixel_faces']} (pixel, face) pairs), its warps "
+          f"{walk['warp_share']:.2%} of theirs (the bound skips the rest)")
     common = {"route": "cuda", "library_ms": None}
     return [{"name": "max_logit_fwd_soft",
              "source": "vistracker_tpu_torch/csrc/max_logit_fwd.cu",
@@ -301,15 +470,100 @@ def check_sil(device, views=16, size=256, sigma=1.0 / 128.0, seed=1):
              "max_abs_err": err, **bwd, **common}]
 
 
+def k3_equal(label, x, lx, y, ly, valid):
+    """K3's plan and wrapper against their plain versions on one input;
+    exits unless the plans are equal and min and argmin bit-equal;
+    returns the max |difference| (0) and the kernel's distances."""
+    import torch
+    from vistracker_tpu_torch.ops.label_nn import (label_nn_fwd,
+                                                   label_nn_plain,
+                                                   label_nn_plan,
+                                                   label_nn_plan_plain)
+
+    plan, want = label_nn_plan(lx, ly, valid), label_nn_plan_plain(lx, ly,
+                                                                   valid)
+    torch.cuda.synchronize()
+    bad = [f for f, a, b in zip(plan._fields, plan, want)
+           if not torch.equal(a, b)]
+    if bad:
+        raise SystemExit(f"K3 plan kernel != plain plan ({label}): {bad}")
+    d_k, i_k = label_nn_fwd(x, lx, y, ly, valid)
+    d_p, i_p = label_nn_plain(x, lx, y, ly, valid)
+    torch.cuda.synchronize()
+    if not (torch.equal(d_k, d_p) and torch.equal(i_k, i_p)):
+        raise SystemExit(
+            f"K3 kernel != plain version ({label}): "
+            f"{int((d_k != d_p).sum())} distances, "
+            f"{int((i_k != i_p).sum())} indices of {d_k.numel()}")
+    return float((d_k - d_p).abs().max()), d_k
+
+
+def compatible_pairs(labels_x, labels_y, y_valid) -> int:
+    """The (x, y) pairs where y is valid and shares x's label: what K3
+    searches (counted by sort and binary search, not from the plan, whose
+    ranges cover all of y where the labels span 32 values or more)."""
+    import torch
+
+    key_y = torch.where(y_valid, labels_y.long(),
+                        torch.iinfo(torch.int64).max)
+    key_y = torch.sort(key_y, dim=1).values
+    lx = labels_x.long().contiguous()
+    return int((torch.searchsorted(key_y, lx, right=True)
+                - torch.searchsorted(key_y, lx)).sum())
+
+
+def median_ms(fn, repeats=3, reps=20) -> list:
+    """`repeats` readings of cuda_ms(fn, reps), in order, and their median
+    last: one 20-launch window can read twice the others when the card's
+    clock or the host stalls."""
+    readings = [cuda_ms(fn, reps) for _ in range(repeats)]
+    return readings + [sorted(readings)[len(readings) // 2]]
+
+
+def k3_adversarial(device, rng, labels: int):
+    """Rows built to break a split search: y is three copies of 500
+    points (exact distance ties at j, j + 500, j + 1000, which land in
+    different 512-point tiles and different warp slices of one label's
+    range), N = 777 and M = 1500 are multiples of no tile, and batch
+    element 1 has no valid y point. Returns the max |difference| (0)."""
+    import torch
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    y0 = rng.randn(3, 500, 3) * 0.15 + [0.2, 0, 2.2]
+    l0 = rng.randint(0, labels, (3, 500))
+    valid = rng.rand(3, 1500) < 0.9
+    valid[1] = False
+    x = t(rng.randn(3, 777, 3) * 0.3 + [0, 0, 2.2])
+    lx = t(rng.randint(0, labels, (3, 777)), torch.int64)
+    y, ly = t(np.tile(y0, (1, 3, 1))), t(np.tile(l0, (1, 3)), torch.int64)
+    err, d = k3_equal(f"ties, {labels} label(s)", x, lx, y, ly,
+                      t(valid, torch.bool))
+    if not bool((d[1] == 1e10).all()):
+        raise SystemExit("K3: the batch element without valid y is not 1e10")
+    return err
+
+
 def check_k3(device, B=16, N=6890, M=3000, seed=2):
-    """K3 against label_nn_plain in both directions of the contact loss
-    (SMPL vertices vs object points and back), with partial validity and
-    rows without a compatible point; the gradient's scatter twice. No
-    library time: no single PyTorch call computes it (torch.cdist has no
-    label mask and no argmin under a mask)."""
+    """K3 (plan kernel and search kernel) against label_nn_plan_plain and
+    label_nn_plain in both directions of the contact loss (SMPL vertices
+    vs object points and back): with 30% validity and rows without a
+    compatible point ("stage 6", the record's case, ~2% of pairs
+    compatible); with every point valid ("main-path density": 1 pair in
+    14 compatible, as the joint phase of the main path feeds it); in the
+    dense worst case (every y valid, one label: every pair compatible); on
+    adversarial rows (k3_adversarial); the gradient's scatter twice.
+    Times (three readings of 20 launches each, the median kept): the
+    wrapper with its plan made inside (the record's) and with the plan
+    given, as the joint phase calls it; device times from a CUDA graph.
+    Bounds: over the compatible pairs (the record's) and over all N x M
+    pairs. No library time: no single PyTorch call computes it
+    (torch.cdist has no label mask and no argmin under a mask)."""
     import torch
     from vistracker_tpu_torch.ops.label_nn import (label_nn, label_nn_fwd,
-                                                   label_nn_plain)
+                                                   label_nn_plain,
+                                                   label_nn_plan)
 
     rng = np.random.RandomState(seed)
 
@@ -323,23 +577,42 @@ def check_k3(device, B=16, N=6890, M=3000, seed=2):
     mh = t(rng.rand(B, N) < 0.3, torch.bool)
     mo = t(rng.rand(B, M) < 0.3, torch.bool)
     mo[0] = False                                    # a frame with no contact
-    err, none_rows, times = 0.0, 0, {"ms": 0.0, "plain_ms": 0.0}
-    for x, lx, y, ly, valid in ((xh, lh, xo, lo, mo), (xo, lo, xh, lh, mh)):
-        d_k, i_k = label_nn_fwd(x, lx, y, ly, valid)
-        d_p, i_p = label_nn_plain(x, lx, y, ly, valid)
-        torch.cuda.synchronize()
-        if not (torch.equal(d_k, d_p) and torch.equal(i_k, i_p)):
-            raise SystemExit(
-                f"K3 kernel != plain version: {int((d_k != d_p).sum())} "
-                f"distances, {int((i_k != i_p).sum())} indices of "
-                f"{d_k.numel()}")
-        err = max(err, float((d_k - d_p).abs().max()))
-        none_rows += int((d_k >= 1e10).sum())
-        times["ms"] += cuda_ms(lambda: label_nn_fwd(x, lx, y, ly, valid), 20)
-        times["plain_ms"] += host_ms(
-            lambda: label_nn_plain(x, lx, y, ly, valid))
+    one_h = torch.zeros_like(lh)
+    one_o = torch.zeros_like(lo)
+    all_h = torch.ones_like(mh)
+    all_o = torch.ones_like(mo)
+    cases = {"stage 6": ((xh, lh, xo, lo, mo), (xo, lo, xh, lh, mh)),
+             "main-path density": ((xh, lh, xo, lo, all_o),
+                                   (xo, lo, xh, lh, all_h)),
+             "dense": ((xh, one_h, xo, one_o, all_o),
+                       (xo, one_o, xh, one_h, all_h))}
+    err, none_rows, res = 0.0, 0, {}
+    for name, dirs in cases.items():
+        r = dict.fromkeys(("device_ms", "search_device_ms", "plain_ms",
+                           "pairs"), 0.0)
+        calls, searches = [], []
+        for args in dirs:
+            e, d = k3_equal(name, *args)
+            err = max(err, e)
+            if name == "stage 6":
+                none_rows += int((d >= 1e10).sum())
+            plan = label_nn_plan(args[1], args[3], args[4])
+            r["pairs"] += compatible_pairs(args[1], args[3], args[4])
+            calls.append(functools.partial(label_nn_fwd, *args))
+            searches.append(functools.partial(label_nn_fwd, *args, plan))
+            r["device_ms"] += graph_ms(calls[-1], 20)
+            r["search_device_ms"] += graph_ms(searches[-1], 20)
+            r["plain_ms"] += host_ms(lambda: label_nn_plain(*args))
+        # both directions a reading
+        r["ms_readings"] = median_ms(lambda: [f() for f in calls])
+        r["search_readings"] = median_ms(lambda: [f() for f in searches])
+        r["ms"], r["search_ms"] = r["ms_readings"][-1], \
+            r["search_readings"][-1]
+        res[name] = r
     if none_rows == 0:
         raise SystemExit("K3 check: no row without a compatible point")
+    for labels in (1, 3, 1000):  # 1,000: the plan's index order
+        err = max(err, k3_adversarial(device, rng, labels))
     # the object side's gradient, as the joint phase takes it: the scatter
     # onto y must give the same bits on every run
     grads = []
@@ -352,19 +625,36 @@ def check_k3(device, B=16, N=6890, M=3000, seed=2):
     if rerun != 0.0 or not float(grads[0].abs().max()) > 0:
         raise SystemExit(f"K3 gradient scatter: run-to-run max |diff| "
                          f"{rerun}, max |grad| {float(grads[0].abs().max())}")
-    bnd = bound(2 * B * N * M * K3_OPS_PER_PAIR,
-                2 * nbytes(xh, xo, lh.int(), lo.int())
-                + nbytes(mh, mo) + 8 * B * (N + M))
-    print(f"K3 at ({B}, {N}, 3) vs ({B}, {M}, 3), 14 labels, both "
-          f"directions: kernel {times['ms']:.4f} ms, plain "
-          f"{times['plain_ms']:.1f} ms, bound {bnd['bound_ms']:.4f} ms by "
-          f"{bnd['bound_by']}; min and argmin bit-equal, {none_rows} rows "
-          f"without a compatible point; gradient scatter run-to-run "
-          f"max |diff| {rerun}")
+    clouds = 2 * nbytes(xh, xo)            # both clouds, both directions
+    all_pairs = bound(2 * B * N * M * K3_OPS_PER_PAIR, clouds)
+    for name, r in res.items():
+        r.update(bound(r["pairs"] * K3_OPS_PER_PAIR, clouds))
+        readings = ["/".join(f"{v:.4f}" for v in r[k][:-1])
+                    for k in ("ms_readings", "search_readings")]
+        print(f"K3 {name} at ({B}, {N}, 3) vs ({B}, {M}, 3), both "
+              f"directions: wrapper {r['ms']:.4f} ms (plan made inside; "
+              f"readings {readings[0]}), search {r['search_ms']:.4f} ms "
+              f"(plan given; readings {readings[1]}); device time "
+              f"(CUDA graph) {r['device_ms']:.4f} ms and "
+              f"{r['search_device_ms']:.4f} ms; plain "
+              f"{r['plain_ms']:.1f} ms; compatible pairs {int(r['pairs'])} "
+              f"of {2 * B * N * M} ({r['pairs'] / (2 * B * N * M):.4%}), "
+              f"bound {r['bound_ms']:.6f} ms by {r['bound_by']}; all-pairs "
+              f"bound {all_pairs['bound_ms']:.4f} ms; min and argmin "
+              "bit-equal")
+    print(f"K3: {none_rows} stage-6 rows without a compatible point; "
+          "adversarial rows (ties across tiles and warp slices, an element "
+          "without valid y, N = 777, M = 1500; 1, 3 and 1,000 labels, the "
+          "last a label span the plan leaves in index order) bit-equal, "
+          "plans equal; "
+          f"gradient scatter run-to-run max |diff| {rerun}")
+    stage6 = res["stage 6"]
     return {"name": "label_nn", "route": "cuda",
             "source": "vistracker_tpu_torch/csrc/label_nn.cu",
             "replaces": "vistracker_tpu/ops/pallas_nn.py:90",
-            "max_abs_err": err, **times, **bnd, "library_ms": None}
+            "max_abs_err": err, "ms": stage6["ms"],
+            "plain_ms": stage6["plain_ms"], "bound_ms": stage6["bound_ms"],
+            "bound_by": stage6["bound_by"], "library_ms": None}
 
 
 def check_k4(device, N=10000, M=10000, seed=4):
@@ -931,8 +1221,18 @@ def run_main_path(frames: int, chunk: int, device="cuda", extra=(),
     fab = fabricate(f"main{frames}", frames, *mesh)
     counters = LaunchCounts()
     probe = PhaseProbe(joint_mod, counters)
+    pairs = []  # (compatible, all) pairs of each K3 plan: 2 a chunk
+    make_plan = joint_mod.label_nn_plan
+
+    def counted_plan(labels_x, labels_y, y_valid):
+        plan = make_plan(labels_x, labels_y, y_valid)
+        pairs.append((compatible_pairs(labels_x, labels_y, y_valid),
+                      labels_x.numel() * labels_y.shape[1]))
+        return plan
+
     with wide_threshold(), occlude_few_infiller(), \
-            mock.patch.object(joint_mod, "_adam_phase", probe):
+            mock.patch.object(joint_mod, "_adam_phase", probe), \
+            mock.patch.object(joint_mod, "label_nn_plan", counted_plan):
         counters.write(dict.fromkeys(counters.read(), 0))
         summary, packed = run_track(
             fab, device, os.path.join(WORK, f"main{frames}", "out"),
@@ -944,7 +1244,7 @@ def run_main_path(frames: int, chunk: int, device="cuda", extra=(),
         raise SystemExit(f"main path: visibility is 0 for some frame: {vis}")
     n_chunks = -(-frames // chunk)
     if probe.object_calls != 3 * n_chunks \
-            or len(probe.sil_grads) != n_chunks:
+            or len(probe.sil_grads) != n_chunks or len(pairs) != 2 * n_chunks:
         raise SystemExit("main path: the stage-6 phases were not seen")
     gmax = {}
     for g in probe.sil_grads:
@@ -971,6 +1271,9 @@ def run_main_path(frames: int, chunk: int, device="cuda", extra=(),
           f"{moved:.4f} m; iterations smpl "
           f"{summary['iters_smpl_mean']}, joint "
           f"{summary['iters_joint_mean']}; launches {json.dumps(launches)}")
+    print("  joint phase, K3's compatible pairs a chunk (human -> object, "
+          "object -> human) from the frozen contact masks: "
+          + ", ".join(f"{c} of {a} ({c / a:.4%})" for c, a in pairs))
     for stage, sec in summary["stage_seconds"].items():
         print(f"  {stage}: {sec:.3f} s, peak {peaks[stage]:.2f} GiB")
     return launches, fab, summary["packed"]
@@ -1001,6 +1304,10 @@ def main():
             if any(w in line for w in ("properties", "registers", "spill")):
                 print(f"  {name}: {line.strip()}")
     print(f"built {list(KERNEL_SOURCES)} in {time.perf_counter() - t0:.1f} s")
+    for name in ("max_logit_bwd", "label_nn"):
+        for kernel, n_ins, n_min in sass_loops(name):
+            print(f"  {name} SASS inner loop of {kernel}: {n_ins} "
+                  f"instructions on its common path, {n_min} FMNMX")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,0 +1,86 @@
+"""chip_smoke.py's kernel phases rehearsed on the CPU at small sizes: the
+card's synchronize and the three timers are patched out, so every wrapper
+runs its plain version and each phase's checks (bit-equality, the K2
+tolerance, run-to-run equality, the adversarial K3 rows, the all-dead K2
+case) and its record run end to end."""
+from unittest import mock
+
+import pytest
+import torch
+
+import chip_smoke
+
+# tiny tensors: intra-op threads only contend with the other test workers
+torch.set_num_threads(1)
+
+RECORD_KEYS = {"name", "route", "source", "replaces", "max_abs_err", "ms",
+               "plain_ms", "bound_ms", "bound_by", "library_ms"}
+
+
+@pytest.fixture
+def no_card():
+    with mock.patch.object(torch.cuda, "synchronize", lambda *a: None), \
+            mock.patch.object(chip_smoke, "cuda_ms", lambda fn, reps: 0.0), \
+            mock.patch.object(chip_smoke, "host_ms", lambda fn: 0.0), \
+            mock.patch.object(chip_smoke, "graph_ms", lambda fn, reps: 0.0):
+        yield
+
+
+def test_check_k3_on_the_cpu(no_card, capsys):
+    rec = chip_smoke.check_k3(torch.device("cpu"), B=2, N=300, M=200)
+    assert set(rec) == RECORD_KEYS and rec["name"] == "label_nn"
+    assert rec["max_abs_err"] == 0.0 and rec["bound_ms"] > 0
+    out = capsys.readouterr().out
+    assert "K3 stage 6" in out and "K3 dense" in out
+    assert "K3 main-path density" in out
+    # the dense case pairs everything: 2 directions x 2 x 300 x 200
+    assert "compatible pairs 240000 of 240000" in out
+
+
+def test_check_sil_on_the_cpu(no_card, capsys):
+    fwd, bwd = chip_smoke.check_sil(torch.device("cpu"), views=2, size=64)
+    assert set(fwd) == set(bwd) == RECORD_KEYS
+    assert (fwd["name"], bwd["name"]) == ("max_logit_fwd_soft",
+                                          "max_logit_bwd")
+    assert fwd["max_abs_err"] == 0.0 and bwd["bound_ms"] > 0
+    # K2's record counts what the inputs need: below the all-faces bound
+    # that K1 soft's record keeps over the same live cells
+    assert bwd["bound_ms"] < fwd["bound_ms"]
+    assert "all-faces bound" in capsys.readouterr().out
+
+
+def test_k2_walk_share_counts_the_walked_pairs():
+    """k2_walk_share's counts on a small scene: every walked triple is a
+    tested one, and a walked triple covers 16 (pixel, face) pairs."""
+    import numpy as np
+    from vistracker_tpu_torch.ops import coverage as cov
+
+    rng = np.random.RandomState(0)
+    ov, of = chip_smoke.object_mesh(12, 10)
+    v2d = torch.as_tensor(ov[None, :, :2] / 0.15 * 0.7
+                          + 0.05 * rng.randn(2, 1, 2), dtype=torch.float32)
+    cpl = cov._planes(v2d, torch.as_tensor(of))
+    active = cov._strip_active(cpl, 64, 1.0 / 128.0)
+    m, _ = cov.max_logit_fwd(cpl, active, 64)
+    walk = chip_smoke.k2_walk_share(cpl, active, m, 64)
+    assert 0 < walk["walked"] < walk["triples"]
+    assert walk["walked_pixel_faces"] == 16 * walk["walked"]
+    assert walk["share"] == walk["walked"] / walk["triples"]
+
+
+def test_compatible_pairs_counts_the_plan():
+    """The compatible pairs are the plan's ranges where it sorts, and
+    still the label-sharing valid pairs where a wide label span leaves
+    the plan in index order (every range all of y)."""
+    from vistracker_tpu_torch.ops.label_nn import label_nn_plan
+    lx = torch.tensor([[0, 1, 1, 2]])
+    ly = torch.tensor([[1, 0, 1, 1, 5]])
+    valid = torch.tensor([[True, True, False, True, True]])
+    # x label 0: 1 valid y; label 1: 2 each (twice); label 2: none
+    plan = label_nn_plan(lx, ly, valid)
+    assert chip_smoke.compatible_pairs(lx, ly, valid) == 5
+    assert int((plan.hi - plan.lo).sum()) == 5
+    wide = ly * 100  # labels 0..500: index order, ranges of 5
+    plan = label_nn_plan(lx * 100, wide, valid)
+    assert int((plan.hi - plan.lo).sum()) == 20
+    assert chip_smoke.compatible_pairs(lx * 100, wide, valid) == 5

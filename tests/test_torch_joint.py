@@ -439,7 +439,9 @@ def test_object_phase_loss_and_gradient_match(rng, monkeypatch, phase):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
         assert tm[1].any() and tm[2].any() and not tm[1].all()
         jenv.update(labels_o=jm[0], mask_h=jm[1], mask_o=jm[2])
-        tenv.update(labels_o=tm[0], mask_h=tm[1], mask_o=tm[2])
+        tenv.update(labels_o=tm[0], mask_h=tm[1], mask_o=tm[2],
+                    nn_plans=topt.contact_plans(ta[4], tenv["labels_h"],
+                                                *tm))
         jl, jg = jax.value_and_grad(cells["loss_joint_env"])(jp, 5.0, jenv)
         tl = topt.loss_joint(tp, 5.0, tenv)
     tl.backward()

@@ -9,8 +9,11 @@ import pytest
 import torch
 
 from vistracker_tpu.ops.pallas_nn import _labelnn_call, label_nn_pallas_batched
-from vistracker_tpu_torch.ops.label_nn import (label_nn, label_nn_fwd,
-                                               label_nn_plain)
+from vistracker_tpu_torch.ops.label_nn import (_SENTINEL, label_nn,
+                                               label_nn_fwd, label_nn_plain,
+                                               label_nn_plan,
+                                               label_nn_plan_plain,
+                                               masked_min_plain)
 
 # tiny tensors: intra-op threads only contend with the other test workers
 torch.set_num_threads(1)
@@ -153,11 +156,207 @@ def test_wrapper_rejects_bad_inputs(rng, bad):
         label_nn_fwd(x, lx, y, ly, yv)
 
 
+def _grid_case(rng, B, N, M, labels):
+    """Small-integer coordinates: every product and sum is exact in
+    float32, so any order of the arithmetic gives the same bits and exact
+    distance ties are common. Labels 0..labels-1 on x, 1..labels on y (x
+    label 0 has no bucket); batch element 1 has no valid y point."""
+    x = rng.randint(-4, 5, (B, N, 3)).astype(np.float32)
+    y = rng.randint(-4, 5, (B, M, 3)).astype(np.float32)
+    yv = rng.rand(B, M) < 0.7
+    yv[1] = False
+    return (x, rng.randint(0, labels, (B, N)), y,
+            rng.randint(1, labels + 1, (B, M)), yv)
+
+
+@pytest.mark.parametrize("B, N, M, labels", [(3, 200, 150, 5),
+                                             (2, 130, 700, 1),
+                                             (2, 1, 1, 1)])
+def test_plan_orders_and_ranges(rng, B, N, M, labels):
+    """K3's plan: y sorted by key with ascending j inside a key, invalid
+    points under the sentinel after every label, x sorted by label, and
+    each x's [lo, hi) holding exactly the valid y points of its label --
+    every compatible y once."""
+    _, lx, _, ly, yv = _grid_case(rng, max(B, 2), N, M, labels)
+    lx, ly, yv = _t(lx, ly, yv)
+    plan = label_nn_plan(lx, ly, yv)
+    assert all(t.dtype == torch.int64 for t in plan)
+    for b in range(lx.shape[0]):
+        key, perm = plan.key_y[b], plan.perm_y[b]
+        assert sorted(perm.tolist()) == list(range(M))
+        want = torch.where(yv[b], ly[b], _SENTINEL)
+        assert torch.equal(key, want[perm])
+        assert bool((key[1:] >= key[:-1]).all())
+        same = key[1:] == key[:-1]
+        assert bool((perm[1:][same] > perm[:-1][same]).all())
+        assert bool((key[~yv[b][perm]] == _SENTINEL).all())
+        assert sorted(plan.perm_x[b].tolist()) == list(range(N))
+        assert torch.equal(plan.key_x[b], lx[b][plan.perm_x[b]])
+        for p in range(N):
+            i = int(plan.perm_x[b, p])
+            got = perm[int(plan.lo[b, p]):int(plan.hi[b, p])].tolist()
+            compat = [j for j in range(M)
+                      if bool(yv[b, j]) and int(ly[b, j]) == int(lx[b, i])]
+            assert got == compat
+
+
+def _pair_d(xi, ys):
+    """The plain version's distance, operation by operation, from one x
+    point (3,) to the points ys (K, 3)."""
+    xy = (xi[0] * ys[:, 0] + xi[1] * ys[:, 1]) + xi[2] * ys[:, 2]
+    xx = (xi[0] * xi[0] + xi[1] * xi[1]) + xi[2] * xi[2]
+    yy = (ys[:, 0] * ys[:, 0] + ys[:, 1] * ys[:, 1]) + ys[:, 2] * ys[:, 2]
+    return torch.clamp((xx + yy) - 2.0 * xy, min=0.0)
+
+
+def _bucket_search(x, y, plan, slices=3):
+    """K3's algorithm written out: each sorted x point against its range
+    of sorted y only (its label's, or all of y where the plan keeps the
+    index order: there a label test), the range cut into `slices` parts
+    (the kernel's warp slices), each part keeping its least position on a
+    strict <, the parts merged by (distance, position); (1e10, 0) where
+    no point of the range counts."""
+    B, N = plan.key_x.shape
+    dmin = torch.full((B, N), 1e10, dtype=torch.float32)
+    idx = torch.zeros((B, N), dtype=torch.int64)
+    for b in range(B):
+        for p in range(N):
+            i = int(plan.perm_x[b, p])
+            rng_q = np.arange(int(plan.lo[b, p]), int(plan.hi[b, p]))
+            best, best_q = 1e10, -1
+            for part in np.array_split(rng_q, slices):
+                d = _pair_d(x[b, i], y[b, plan.perm_y[b, part]])
+                same = plan.key_y[b, part] == plan.key_x[b, p]
+                d = torch.where(same, d, 1e10).tolist()
+                part_d, part_q = 1e10, -1
+                for q, v in zip(part.tolist(), d):
+                    if v < part_d:
+                        part_d, part_q = v, q
+                if part_d < best or (part_d == best and part_q < best_q):
+                    best, best_q = part_d, part_q
+            if best_q >= 0:
+                dmin[b, i] = best
+                idx[b, i] = plan.perm_y[b, best_q]
+    return dmin, idx
+
+
+@pytest.mark.parametrize("coords", ["grid", "unit"])
+def test_bucket_search_bit_equal(rng, coords):
+    """Searching only each label's bucket from the plan gives the plain
+    version's min and argmin bit for bit: exact ties (integer grid) go to
+    the least j across slices, empty buckets and the element without
+    valid y read (1e10, 0). On the grid every operation is exact, so the
+    JAX Pallas kernel (interpret mode) agrees bit for bit too."""
+    x, lx, y, ly, yv = _grid_case(rng, 3, 200, 150, 5)
+    if coords == "unit":
+        x = rng.randn(*x.shape).astype(np.float32)
+        y = rng.randn(*y.shape).astype(np.float32)
+    xt, lxt, yt, lyt, yvt = _t(x, lx, y, ly, yv)
+    d, idx = _bucket_search(xt, yt, label_nn_plan(lxt, lyt, yvt))
+    dp, ip = masked_min_plain(xt, yt, yvt, lxt, lyt)
+    assert torch.equal(d, dp) and torch.equal(idx, ip)
+    assert bool((d[1] == 1e10).all()) and bool((d[0] == 1e10).any())
+    if coords == "grid":
+        full = _brute(x, lx, y, ly, yv)
+        assert (np.sort(full, -1)[..., 1] == full.min(-1))[full.min(-1)
+                                                           < 1e9].any()
+        jd, jidx = _labelnn_call(jnp.asarray(x), jnp.asarray(lx),
+                                 jnp.asarray(y), jnp.asarray(ly),
+                                 jnp.asarray(yv), 1024, 128, True)
+        np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+
+
+@pytest.mark.parametrize("spread", [32, 1000])
+def test_plan_keeps_index_order_for_a_wide_label_span(rng, spread):
+    """An element whose labels (x, and valid y) span 32 values or more
+    keeps the index order: perm the identity, keys the labels (the
+    sentinel for invalid y), every range all of y; an element of narrow
+    span in the same batch is sorted. The search over that plan, label
+    test included, is bit-equal to the plain version."""
+    x, lx, y, ly, yv = _grid_case(rng, 3, 120, 90, 5)
+    lx[0] *= spread // 4   # element 0: labels 0..spread (or more)
+    ly[0] *= spread // 4
+    xt, lxt, yt, lyt, yvt = _t(x, lx, y, ly, yv)
+    plan = label_nn_plan_plain(lxt, lyt, yvt)
+    assert torch.equal(plan.perm_x[0], torch.arange(120))
+    assert torch.equal(plan.perm_y[0], torch.arange(90))
+    assert torch.equal(plan.key_x[0], lxt[0])
+    assert torch.equal(plan.key_y[0], torch.where(yvt[0], lyt[0], _SENTINEL))
+    assert bool((plan.lo[0] == 0).all()) and bool((plan.hi[0] == 90).all())
+    assert bool((plan.key_x[2][1:] >= plan.key_x[2][:-1]).all())
+    assert bool((plan.hi[2] - plan.lo[2] < 90).all())
+    d, idx = _bucket_search(xt, yt, plan)
+    dp, ip = masked_min_plain(xt, yt, yvt, lxt, lyt)
+    assert torch.equal(d, dp) and torch.equal(idx, ip)
+
+
+def test_plan_does_not_change_the_result(rng):
+    """A plan made once and passed in (the joint phase's way) gives what
+    the wrapper gives alone, forward and backward."""
+    x, lx, y, ly, yv = _t(*_case(rng, 2, 60, 40, 3))
+    plan = label_nn_plan(lx, ly, yv)
+    assert all(torch.equal(a, b) for a, b in
+               zip(label_nn_fwd(x, lx, y, ly, yv, plan),
+                   label_nn_fwd(x, lx, y, ly, yv)))
+    y1 = y.clone().requires_grad_(True)
+    y2 = y.clone().requires_grad_(True)
+    label_nn(x, lx, y1, ly, yv, plan).clamp(max=100.0).sum().backward()
+    label_nn(x, lx, y2, ly, yv).clamp(max=100.0).sum().backward()
+    assert torch.equal(y1.grad, y2.grad)
+
+
+def _adversarial(rng, labels):
+    """The card's adversarial rows (chip_smoke.py:k3_adversarial): exact
+    ties at j, j + 500, j + 1000 (different 512-point tiles and warp
+    slices), N = 777 and M = 1500 (multiples of no tile), batch element 1
+    without a valid y point."""
+    y0 = rng.randn(3, 500, 3).astype(np.float32)
+    yv = rng.rand(3, 1500) < 0.9
+    yv[1] = False
+    return (rng.randn(3, 777, 3).astype(np.float32),
+            rng.randint(0, labels, (3, 777)), np.tile(y0, (1, 3, 1)),
+            np.tile(rng.randint(0, labels, (3, 500)), (1, 3)), yv)
+
+
 @pytest.mark.cuda
 def test_kernel_bit_equal_on_the_card(rng):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     args = [a.cuda() for a in _t(*_case(rng, 2, 700, 500, 14, 0.4))]
     dk, ik = label_nn_fwd(*args)
+    dp, ip = label_nn_plain(*args)
+    assert torch.equal(dk, dp) and torch.equal(ik, ip)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ties 1 label", "ties 3 labels",
+                                  "ties 1000 labels", "dense", "grid",
+                                  "one point"])
+def test_kernel_bit_equal_on_adversarial_rows(rng, case):
+    """Ties across tiles and warp slices, an element without valid y,
+    ragged sizes, 1,000 labels (a span the plan leaves in index order:
+    the search tests labels over all pairs), the dense case
+    (one label, all valid), exact grid ties and single points: the plan
+    equal to the plain plan, min and argmin bit-equal to the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    if case.startswith("ties"):
+        arrays = _adversarial(rng, int(case.split()[1]))
+    elif case == "dense":
+        x, _, y, _, _ = _case(rng, 2, 1000, 1300, 1)
+        arrays = (x, np.zeros((2, 1000), np.int64), y,
+                  np.zeros((2, 1300), np.int64), np.ones((2, 1300), bool))
+    elif case == "grid":
+        arrays = _grid_case(rng, 3, 777, 1500, 5)
+    else:
+        arrays = _case(rng, 2, 1, 1, 1, 1.0)
+    args = [a.cuda() for a in _t(*arrays)]
+    labels = (args[1], args[3], args[4])
+    plan = label_nn_plan(*labels)
+    assert all(torch.equal(a, b) for a, b in
+               zip(plan, label_nn_plan_plain(*labels)))
+    dk, ik = label_nn_fwd(*args, plan)
     dp, ip = label_nn_plain(*args)
     assert torch.equal(dk, dp) and torch.equal(ik, ip)

@@ -230,3 +230,88 @@ def test_kernels_against_plain_on_the_card(rng):
     dk = cov.max_logit_bwd(cpl, active, m, gw, size)
     dp = cov.max_logit_bwd_plain(cpl, active, m, gw, size)
     assert float((dk - dp).abs().max()) <= 1e-5 * float(dp.abs().max())
+
+
+def test_bwd_plain_dead_cells_and_single_views(rng):
+    """K2's plain version with every cell dead gives dc 0 everywhere; on
+    one view's slices it gives that view's rows of the batched call, bit
+    for bit (the views are independent: the kernel's one-view case)."""
+    v2d, faces, size, sigma = _random_scene(rng)
+    cpl = cov._planes(torch.as_tensor(v2d), torch.as_tensor(faces))
+    active = cov._strip_active(cpl, size, sigma)
+    m, cnt = cov.max_logit_fwd(cpl, active, size)
+    gw = torch.as_tensor(rng.randn(*m.shape).astype(np.float32)) \
+        / torch.clamp(cnt, min=1.0)
+    assert (cov.max_logit_bwd(cpl, torch.zeros_like(active), m, gw, size)
+            == 0).all()
+    dc = cov.max_logit_bwd(cpl, active, m, gw, size)
+    assert dc.abs().max() > 0
+    rows = size // cov._RBLK
+    for b in range(len(v2d)):
+        one = cov.max_logit_bwd(cpl[b:b + 1], active[b * rows:(b + 1) * rows],
+                                m[b:b + 1], gw[b:b + 1], size)
+        assert torch.equal(one[0], dc[b])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one view", "every cell dead", "two runs"])
+def test_bwd_kernel_edge_cases_on_the_card(rng, case):
+    """K2 on one view, with no live cell (dc all 0), and twice on the same
+    inputs (the same bits: no atomics), within 1e-5 of the plain
+    version's largest entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    v2d, faces, size, sigma = _random_scene(rng)
+    cpl = cov._planes(torch.as_tensor(v2d).cuda(),
+                      torch.as_tensor(faces).cuda()).contiguous()
+    active = cov._strip_active(cpl, size, sigma)
+    m, cnt = cov.max_logit_fwd(cpl, active, size)
+    gw = torch.rand_like(m) / torch.clamp(cnt, min=1.0)
+    if case == "one view":
+        cpl, active, m, gw = cpl[:1], active[:size // cov._RBLK], m[:1], gw[:1]
+    elif case == "every cell dead":
+        active = torch.zeros_like(active)
+    dk = cov.max_logit_bwd(cpl, active, m, gw, size)
+    dp = cov.max_logit_bwd_plain(cpl, active, m, gw, size)
+    assert float((dk - dp).abs().max()) <= 1e-5 * float(dp.abs().max())
+    if case == "every cell dead":
+        assert bool((dk == 0).all())
+    if case == "two runs":
+        assert torch.equal(dk, cov.max_logit_bwd(cpl, active, m, gw, size))
+
+
+@scenes
+def test_bwd_chunk_bound_skips_no_winner(rng, scene):
+    """K2's skip test (csrc/max_logit_bwd.cu: a face's plane min over a
+    16-column chunk of a row is at most min_j max(e_j at the chunk's two
+    end pixels); below the chunk's least m the chunk is skipped), in the
+    kernel's single-rounded arithmetic: the bound is never below a plane
+    min inside its chunk, and no winning (pixel, face) of a live cell lies
+    in a skipped chunk -- so the skip leaves dc as the full walk gives
+    it -- while the test does skip most chunks."""
+    v2d, faces, size, sigma = SCENES[scene](rng)
+    cpl = cov._planes(torch.as_tensor(v2d), torch.as_tensor(faces))
+    active = cov._strip_active(cpl, size, sigma)
+    m, _ = cov.max_logit_fwd(cpl, active, size)
+    chunk, skipped, total = 16, 0, 0
+    for b, fsl, rows, cols, planes, px, py, cells in cov._live_blocks(
+            cpl, active, size):
+        mins = planes[0]
+        for e in planes[1:]:
+            mins = torch.minimum(mins, e)                # (128, R, C)
+        win = (mins == m[b, rows, cols]) & cells
+        for s in range(0, mins.shape[2], chunk):
+            ends = [torch.maximum(e[:, :, s], e[:, :, min(s + chunk,
+                                                        mins.shape[2]) - 1])
+                    for e in planes]
+            bound = ends[0]
+            for e in ends[1:]:
+                bound = torch.minimum(bound, e)          # (128, R)
+            part = mins[:, :, s:s + chunk]
+            assert bool((bound[..., None] >= part).all())
+            skip = bound < m[b, rows, cols][None, :, s:s + chunk].amin(-1)
+            assert not bool((skip[..., None] & win[:, :, s:s + chunk]).any())
+            live = cells[None, :, s]
+            skipped += int((skip & live).sum())
+            total += int(live.sum()) * len(skip)
+    assert total > 0 and skipped > total // 2

@@ -39,7 +39,7 @@ from ..core.priors import HandPrior, MahalanobisPrior
 from ..core.rotations import project_so3
 from ..core.smpl import SMPLModel, lbs_forward
 from ..ops.coverage import soft_silhouette_batch
-from ..ops.label_nn import label_nn
+from ..ops.label_nn import label_nn, label_nn_plan
 from ..ops.sdf_grid import SDFGrid, penetration_loss
 from .smplt import SMPLTParams
 
@@ -340,16 +340,20 @@ def make_object_optimizer(query_fn, project_px,
             terms["otemp"] = ((v1 - v2) ** 2).mean() * w
             terms["ovtemp"] = ((obj[1:] - obj[:-1]) ** 2).mean() * w
 
-    def contact_loss(obj, smpl_verts, labels_h, labels_o, mask_h, mask_o):
+    def contact_loss(obj, smpl_verts, labels_h, labels_o, mask_h, mask_o,
+                     plans):
         """Part-paired squared chamfer between contact regions: per frame
         and part, the mean squared nearest-neighbour distance of the
         human contact points of the part to the object contact points of
         the same part, plus the reverse; a FLAT mean over all (frame,
         part) pairs of the chunk where both sides are non-empty. Frames
-        where either side has no contacts contribute no pair."""
+        where either side has no contacts contribute no pair. `plans` are
+        the two directions' label_nn plans (contact_plans)."""
         lh_b = labels_h.expand(smpl_verts.shape[:2])
-        d_h_b = label_nn(smpl_verts, lh_b, obj, labels_o, mask_o)  # (B, V)
-        d_o_b = label_nn(obj, labels_o, smpl_verts, lh_b, mask_h)  # (B, N_o)
+        d_h_b = label_nn(smpl_verts, lh_b, obj, labels_o, mask_o,
+                         plans[0])                             # (B, V)
+        d_o_b = label_nn(obj, labels_o, smpl_verts, lh_b, mask_h,
+                         plans[1])                             # (B, N_o)
         oh_h = F.one_hot(lh_b, NUM_PARTS).float() * mask_h[..., None].float()
         oh_o = F.one_hot(labels_o, NUM_PARTS).float() \
             * mask_o[..., None].float()
@@ -424,7 +428,8 @@ def make_object_optimizer(query_fn, project_px,
         temporal(obj, True, terms)
         terms["contact"] = contact_loss(obj, env["smpl_verts"],
                                         env["labels_h"], env["labels_o"],
-                                        env["mask_h"], env["mask_o"])
+                                        env["mask_h"], env["mask_o"],
+                                        env["nn_plans"])
         if cfg.collision and "sdf_grid" in env:
             local = torch.bmm(
                 env["smpl_verts"] / env["obj_s"][:, None, None]
@@ -443,6 +448,14 @@ def make_object_optimizer(query_fn, project_px,
         preds_h = contact_query_fn(env["ctx"], env["smpl_verts"])
         return (labels_o, preds_h["df"][..., 1] < cfg.cont_thres,
                 preds_o["df"][..., 0] < cfg.cont_thres)
+
+    def contact_plans(smpl_verts, labels_h, labels_o, mask_h, mask_o):
+        """The contact loss's two label_nn plans (human -> object, object
+        -> human), made once from the frozen contact masks and reused by
+        every joint step."""
+        lh_b = labels_h.expand(smpl_verts.shape[:2])
+        return (label_nn_plan(lh_b, labels_o, mask_o),
+                label_nn_plan(labels_o, lh_b, mask_h))
 
     def decay2(s):
         return float(s // spi) + 1.0
@@ -479,7 +492,9 @@ def make_object_optimizer(query_fn, project_px,
         if cfg.collision and sdf_grid is not None:
             env3["sdf_grid"] = sdf_grid
         labels_o, mask_h, mask_o = contact_masks(params, env3)
-        env3.update(labels_o=labels_o, mask_h=mask_h, mask_o=mask_o)
+        env3.update(labels_o=labels_o, mask_h=mask_h, mask_o=mask_o,
+                    nn_plans=contact_plans(smpl_verts, env3["labels_h"],
+                                           labels_o, mask_h, mask_o))
         params, l3, it_j = _adam_phase(
             lambda p, d: loss_joint(p, d, env3), params, lrs_j,
             cfg.joint_max_iter, spi, decay_j,
@@ -495,4 +510,5 @@ def make_object_optimizer(query_fn, project_px,
     optimize_object.loss_obj, optimize_object.loss_sil = loss_obj, loss_sil
     optimize_object.loss_joint = loss_joint
     optimize_object.contact_masks = contact_masks
+    optimize_object.contact_plans = contact_plans
     return optimize_object

@@ -347,7 +347,8 @@ def max_logit_bwd_plain(cpl: torch.Tensor, active: torch.Tensor,
 def max_logit_bwd(cpl: torch.Tensor, active: torch.Tensor, m: torch.Tensor,
                   gw: torch.Tensor, size: int) -> torch.Tensor:
     """K2: (B, F', 15) cotangent of the planes. A CUDA tensor launches the
-    hand-written kernel; a CPU tensor runs max_logit_bwd_plain."""
+    hand-written kernel (two launches, one call: per live cell, then a sum
+    over cells); a CPU tensor runs max_logit_bwd_plain."""
     if cpl.device.type == "cpu":
         return max_logit_bwd_plain(cpl, active, m, gw, size)
     if cpl.device.type != "cuda":
@@ -359,15 +360,19 @@ def max_logit_bwd(cpl: torch.Tensor, active: torch.Tensor, m: torch.Tensor,
     from ..utils.cuda_build import load_library
 
     fn = load_library("max_logit_bwd").vt_max_logit_bwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
         + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     B, Fp, _ = cpl.shape
     dc = torch.empty_like(cpl)
+    # one slot of 128 x 15 partial sums per (view, strip, x tile, face
+    # block) cell; the kernel writes and reads only the live cells' slots
+    partial = torch.empty((active.numel(), _FBLK * _CW), dtype=torch.float32,
+                          device=cpl.device)
     with torch.cuda.device(cpl.device):
         err = fn(cpl.data_ptr(), active.data_ptr(), m.data_ptr(),
-                 gw.data_ptr(), dc.data_ptr(), B, Fp, size, _xblk(size),
-                 2.0 / (size - 1),
+                 gw.data_ptr(), partial.data_ptr(), dc.data_ptr(), B, Fp,
+                 size, _xblk(size), 2.0 / (size - 1),
                  torch.cuda.current_stream(cpl.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"max_logit_bwd kernel launch failed: CUDA "

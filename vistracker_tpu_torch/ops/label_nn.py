@@ -11,18 +11,30 @@ point the min squared distance to the valid y points of the same label,
 `label_nn_fwd` is the wrapper: a CUDA tensor launches the hand-written
 kernel csrc/label_nn.cu (or raises), a CPU tensor runs the plain PyTorch
 version `label_nn_plain`, which spells out the kernel's arithmetic
-operation by operation and is bit-equal to it. The gradient comes from
-the saved argmin: dx = 2 (x - y[idx]) g, dy its negative scattered onto
-y; on exact distance ties the first y point gets all of it.
+operation by operation and is bit-equal to it. The kernel compares each
+x point only with the valid y points of its own label, through a plan
+(`label_nn_plan`: both clouds sorted by label, per x the range of its
+label's y points; on the card a plan kernel of csrc/label_nn.cu makes
+it, on the CPU its plain version `label_nn_plan_plain`) that the wrapper
+makes, or that a caller whose labels and masks stay fixed over many
+calls makes once and passes in. The
+gradient comes from the saved argmin: dx = 2 (x - y[idx]) g, dy its
+negative scattered onto y; on exact distance ties the first y point gets
+all of it.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 _NONE = 1e10     # distance where no compatible y point exists
 _PLAIN_ROWS = 1024  # x points per block of the plain version
+# the key of an invalid y point: above every label (labels must be below it)
+_SENTINEL = torch.iinfo(torch.int64).max
+_BUCKETS = 32  # the plan sorts an element whose labels span fewer values
 
 
 def _sq_norm(v: torch.Tensor) -> torch.Tensor:
@@ -86,37 +98,128 @@ def label_nn_plain(x, labels_x, y, labels_y, y_valid):
     return masked_min_plain(x, y, y_valid, labels_x, labels_y)
 
 
-def label_nn_fwd(x, labels_x, y, labels_y, y_valid):
+class LabelNNPlan(NamedTuple):
+    """K3's search order for one (labels_x, labels_y, y_valid), all int64:
+    key_x (B, N) the x labels ascending, perm_x (B, N) the x index of each;
+    key_y (B, M) the y keys ascending (the label of a valid point, the
+    sentinel of an invalid one), perm_y (B, M) the y index j of each,
+    ascending within a key; lo, hi (B, N): the sorted y positions [lo, hi)
+    whose key is the sorted x point's label. A batch element whose labels
+    (x, and valid y) span 32 values or more keeps the index order instead
+    (perm the identity, keys unsorted, every [lo, hi) = [0, M)): the kernel
+    then tests labels over all its pairs."""
+
+    key_x: torch.Tensor
+    perm_x: torch.Tensor
+    key_y: torch.Tensor
+    perm_y: torch.Tensor
+    lo: torch.Tensor
+    hi: torch.Tensor
+
+
+def label_nn_plan_plain(labels_x, labels_y, y_valid) -> LabelNNPlan:
+    """Plain PyTorch plan (LabelNNPlan) from labels (B, N), (B, M) and
+    validity (B, M): stable sorts and binary searches, the index order
+    where an element's labels span 32 values or more; no host sync.
+    Labels must lie below the invalid points' sentinel 2^63 - 1."""
+    lx = labels_x.long()
+    ly = torch.where(y_valid, labels_y.long(), _SENTINEL)
+    int64 = torch.iinfo(torch.int64)
+    low = torch.minimum(lx.amin(1), ly.amin(1))
+    high = torch.maximum(lx.amax(1),
+                         torch.where(y_valid, ly, int64.min).amax(1))
+    span = high - low  # negative where it wraps: 2^63 or more
+    narrow = ((span >= 0) & (span < _BUCKETS))[:, None]
+    key_y, perm_y = torch.sort(ly, dim=1, stable=True)
+    key_x, perm_x = torch.sort(lx, dim=1, stable=True)
+    every = torch.zeros_like(lx)
+    N, M = lx.shape[1], ly.shape[1]
+    return LabelNNPlan(
+        torch.where(narrow, key_x, lx),
+        torch.where(narrow, perm_x, torch.arange(N, device=lx.device)),
+        torch.where(narrow, key_y, ly),
+        torch.where(narrow, perm_y, torch.arange(M, device=lx.device)),
+        torch.where(narrow, torch.searchsorted(key_y, key_x), every),
+        torch.where(narrow, torch.searchsorted(key_y, key_x, right=True),
+                    every + M))
+
+
+@functools.cache
+def _kernel(name: str):
+    """csrc/label_nn.cu's entry `name`, built and loaded at first use,
+    with its ctypes signature."""
+    from ..utils.cuda_build import load_library
+
+    fn = getattr(load_library("label_nn"), name)
+    n_ptr = {"vt_label_nn": 10, "vt_label_nn_plan": 9}[name]
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def label_nn_plan(labels_x, labels_y, y_valid) -> LabelNNPlan:
+    """K3's search order (LabelNNPlan) from labels (B, N), (B, M) and
+    validity (B, M): on the card the plan kernel of csrc/label_nn.cu makes
+    it, on the CPU label_nn_plan_plain. No host sync either way."""
+    if labels_x.device.type == "cpu":
+        return label_nn_plan_plain(labels_x, labels_y, y_valid)
+    if labels_x.device.type != "cuda":
+        raise ValueError(f"label_nn_plan: unsupported device "
+                         f"{labels_x.device}")
+    B, N = labels_x.shape
+    M = labels_y.shape[1]
+    lx = labels_x.long().contiguous()
+    ly = labels_y.long().contiguous()
+    valid = y_valid.contiguous().view(torch.uint8)
+    xs = torch.empty((4, B, N), dtype=torch.int64, device=lx.device)
+    ys = torch.empty((2, B, M), dtype=torch.int64, device=lx.device)
+    plan = LabelNNPlan(xs[0], xs[1], ys[0], ys[1], xs[2], xs[3])
+    with torch.cuda.device(lx.device):
+        err = _kernel("vt_label_nn_plan")(
+            lx.data_ptr(), ly.data_ptr(), valid.data_ptr(),
+            *(t.data_ptr() for t in plan), B, N, M,
+            torch.cuda.current_stream(lx.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"label_nn plan kernel launch failed: CUDA error "
+                           f"{err}")
+    return plan
+
+
+def label_nn_fwd(x, labels_x, y, labels_y, y_valid,
+                 plan: LabelNNPlan | None = None):
     """K3 forward -> (min (B, N) float32, argmin (B, N) int64). A CUDA
-    tensor launches the hand-written kernel; a CPU tensor runs
-    label_nn_plain."""
+    tensor launches the hand-written kernel over `plan`, made here from
+    the labels and validity when not given; a CPU tensor runs
+    label_nn_plain (and ignores the plan)."""
     if x.device.type == "cpu":
         return label_nn_plain(x, labels_x, y, labels_y, y_valid)
     if x.device.type != "cuda":
         raise ValueError(f"label_nn: unsupported device {x.device}")
     _check(x, labels_x, y, labels_y, y_valid)
-    from ..utils.cuda_build import load_library
-
-    fn = load_library("label_nn").vt_label_nn
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if plan is None:
+        plan = label_nn_plan(labels_x, labels_y, y_valid)
     B, N, _ = x.shape
     M = y.shape[1]
+    for name, t in zip(plan._fields, plan):
+        want = (B, M) if name in ("key_y", "perm_y") else (B, N)
+        if t.dtype != torch.int64 or t.shape != want \
+                or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"label_nn plan: {name} must be contiguous "
+                             f"int64 {want} on {x.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
     xc, yc = x.contiguous(), y.contiguous()
-    lx = labels_x.to(torch.int32).contiguous()
-    ly = labels_y.to(torch.int32).contiguous()
-    valid = y_valid.contiguous().view(torch.uint8)
     dmin = torch.empty((B, N), dtype=torch.float32, device=x.device)
-    idx = torch.empty((B, N), dtype=torch.int32, device=x.device)
+    idx = torch.empty((B, N), dtype=torch.int64, device=x.device)
     with torch.cuda.device(x.device):
-        err = fn(xc.data_ptr(), lx.data_ptr(), yc.data_ptr(), ly.data_ptr(),
-                 valid.data_ptr(), dmin.data_ptr(), idx.data_ptr(), B, N, M,
-                 torch.cuda.current_stream(x.device).cuda_stream)
+        err = _kernel("vt_label_nn")(
+            xc.data_ptr(), yc.data_ptr(), *(t.data_ptr() for t in plan),
+            dmin.data_ptr(), idx.data_ptr(), B, N, M,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"label_nn kernel launch failed: CUDA error {err}")
     label_nn_fwd.launches += 1
-    return dmin, idx.long()
+    return dmin, idx
 
 
 label_nn_fwd.launches = 0
@@ -126,9 +229,9 @@ class _LabelNN(torch.autograd.Function):
     """min squared distance with the gradient from the saved argmin."""
 
     @staticmethod
-    def forward(ctx, x, labels_x, y, labels_y, y_valid):
+    def forward(ctx, x, labels_x, y, labels_y, y_valid, plan):
         d, idx = label_nn_fwd(x.detach(), labels_x, y.detach(), labels_y,
-                              y_valid)
+                              y_valid, plan)
         ctx.save_for_backward(x, y, idx, d < 0.5 * _NONE)
         return d
 
@@ -149,10 +252,13 @@ class _LabelNN(torch.autograd.Function):
                     .expand_as(idx)
                 dy = torch.zeros_like(y).index_put_((rows, idx), -diff,
                                                     accumulate=True)
-        return dx, None, dy, None, None
+        return dx, None, dy, None, None, None
 
 
-def label_nn(x, labels_x, y, labels_y, y_valid) -> torch.Tensor:
+def label_nn(x, labels_x, y, labels_y, y_valid,
+             plan: LabelNNPlan | None = None) -> torch.Tensor:
     """(B, N) min squared distance from each x point to the valid y points
-    of the same label (1e10 where none), differentiable w.r.t. x and y."""
-    return _LabelNN.apply(x, labels_x, y, labels_y, y_valid)
+    of the same label (1e10 where none), differentiable w.r.t. x and y;
+    `plan` is label_nn_plan(labels_x, labels_y, y_valid), made once where
+    they stay fixed over many calls."""
+    return _LabelNN.apply(x, labels_x, y, labels_y, y_valid, plan)
