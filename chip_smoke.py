@@ -7,17 +7,21 @@ Phases (any failure exits non-zero):
      nvcc (one process per source, started together); print the card;
   2. kernel K1 (csrc/max_logit_fwd.cu) against its plain PyTorch version
      at the stage-3 shape -- a chunk's 16 frames x 3 triplane views of a
-     13,776-face SMPL-sized closed mesh at 512^2 -- and at 32..256 px (each
-     pixels-per-thread instance), requiring m and cnt bit-equal; kernel,
-     plain and bound times;
+     13,776-face SMPL-sized closed mesh at 512^2 -- and at 32..256 px,
+     requiring m and cnt bit-equal, also with every cell dead, on one
+     view and with every face repeated in a second face block (cnt
+     doubles); its live face blocks per (view, strip, x tile), its skip
+     counts; kernel (events and device time), plain times, the bound
+     over the work these inputs need (the skip test, the pairs it walks)
+     and over all faces of live cells;
   3. K1 in its soft-silhouette use and kernel K2 (csrc/max_logit_bwd.cu)
      at the stage-6 shape -- 16 views of a 2,500-face decimated closed
-     mesh at 256^2, sigma 1/128: m and cnt bit-equal to the plain
-     version, the plane cotangent within a stated tolerance of
-     max_logit_bwd_plain, exactly 0 on dead rows and the same bits on two
-     runs; also on one view and with every cell dead (dc 0); K2's bound
-     over the work these inputs need (its skip test, the pairs it walks)
-     and over all faces of live cells;
+     mesh at 256^2, sigma 1/128: K1 as in phase 2, the time of the soft
+     liveness bound (_strip_active); the plane cotangent within a stated
+     tolerance of max_logit_bwd_plain, exactly 0 on dead rows and the
+     same bits on two runs; also on one view and with every cell dead
+     (dc 0); K2's bound over the work these inputs need (its skip test,
+     the pairs it walks) and over all faces of live cells;
   4. kernel K3 (csrc/label_nn.cu) at (16, 6890, 3) vs (16, 3000, 3), 14
      labels, both directions: with 30% validity, with all points valid
      (the main path's density) and in the dense worst case (all valid,
@@ -31,10 +35,13 @@ Phases (any failure exits non-zero):
      bound over the compatible pairs and over all pairs;
   5. kernel K4 (csrc/label_nn.cu, entry vt_nn_min) at the evaluate shape
      -- 10,000 x 10,000 surface samples at metre scale, one cloud a call
-     -- unmasked and with a partial y-mask, on a small batch with an
-     all-masked row and on clouds of 1 and 129 points, requiring min and
-     argmin bit-equal to nn_min_sqdist_plain; kernel, plain, bound and
-     library (torch.cdist) times;
+     -- unmasked and with a partial y-mask, with exact distance ties
+     between y points far apart in index (across warps and blocks), on a
+     small batch with an all-masked row, on clouds of 1 and 129 points
+     and with fewer y points than one split, requiring min and argmin
+     bit-equal to nn_min_sqdist_plain and two runs equal; kernel (events
+     and device time, the latter also at one split of y fewer and one
+     more), plain, bound and library (torch.cdist) times;
   6. the whole `track` at a small size on the CPU and on the card, same
      inputs and seeds, with a surface threshold wide enough that the
      untrained net keeps surface points: the packed outputs must agree;
@@ -96,6 +103,15 @@ K2_OPS_PER_CHUNK_TEST = 30
 # (apart from the order of ties at 0 it could follow the min)
 K3_OPS_PER_PAIR = 12
 K4_OPS_PER_PAIR = 11  # K3's less the label compare
+# K1's skip test a (face, 8 x 16 tile): 5 planes x (2 row FMAs + max + 2
+# FMAs + max) + 4 min + 1 compare; the kernel's first pass, which repeats
+# it for a lower bound of the tile's max, is its design's cost, not work
+# the function needs
+K1_OPS_PER_TILE_TEST = 55
+K1_TILE_ROWS, K1_TILE_COLS = 8, 16
+# a walked (face, tile): the row terms of its 8 rows, 15 a pixel
+K1_OPS_PER_TILE_WALK = (K1_TILE_ROWS * K1_OPS_PER_ROW_FACE
+                        + K1_TILE_ROWS * K1_TILE_COLS * K1_OPS_PER_PIXEL_FACE)
 KERNEL_SOURCES = ("max_logit_fwd", "max_logit_bwd", "label_nn")
 
 
@@ -256,35 +272,122 @@ def k1_equal(cpl, active, size) -> float:
                                (c_k - c_p).abs().max()))
 
 
-def check_k1(device, frames=16, size=512):
+def live_distribution(active, size, n_faces_padded) -> dict:
+    """Live face blocks per (view, strip, x tile), the unit the TPU kernel
+    and the first CUDA design looped over: max, mean and the share with
+    none."""
+    from vistracker_tpu_torch.ops.coverage import _FBLK, _xblk
+
+    per = active.reshape(-1, size // _xblk(size),
+                         n_faces_padded // _FBLK).sum(-1).flatten().float()
+    return {"max": int(per.max()), "mean": float(per.mean()),
+            "none": float((per == 0).float().mean())}
+
+
+def k1_edge_cases(label, cpl, active, size, tie_views) -> dict:
+    """K1 on the cases a split of its work could break, each bit-equal to
+    the plain version: every cell dead (m = -1e9, cnt = 0 everywhere); one
+    view; every face of the first `tie_views` views repeated in a second
+    set of face blocks, so each pixel's ties sit in two blocks (m must stay
+    and cnt double). Then the kernel's skip counts on the whole input
+    (max_logit_fwd_walks, m and cnt checked again) and the live-block
+    distribution; returns those numbers."""
+    import torch
+    from vistracker_tpu_torch.ops.coverage import (_FBLK, _RBLK, _xblk,
+                                                   max_logit_fwd,
+                                                   max_logit_fwd_plain,
+                                                   max_logit_fwd_walks)
+
+    dead = torch.zeros_like(active)
+    m_d, c_d = max_logit_fwd(cpl, dead, size)
+    if not (bool((m_d == -1e9).all()) and bool((c_d == 0).all())):
+        raise SystemExit(f"K1 ({label}): every cell dead, yet m != -1e9 or "
+                         "cnt != 0")
+    k1_equal(cpl, dead, size)
+    n_strips = size // _RBLK
+    k1_equal(cpl[:1], active[:n_strips].contiguous(), size)
+    n_x = size // _xblk(size)
+    v = min(tie_views, cpl.shape[0])
+    act = active[:v * n_strips].reshape(v * n_strips, n_x, -1)
+    twice = torch.cat([cpl[:v], cpl[:v]], 1).contiguous()
+    act2 = torch.cat([act, act], 2).reshape(v * n_strips, -1).contiguous()
+    k1_equal(twice, act2, size)
+    m1, c1 = max_logit_fwd(cpl[:v].contiguous(),
+                           active[:v * n_strips].contiguous(), size)
+    m2, c2 = max_logit_fwd(twice, act2, size)
+    if not (torch.equal(m1, m2) and torch.equal(2 * c1, c2)):
+        raise SystemExit(f"K1 ({label}): faces repeated in other blocks "
+                         "did not double cnt at the same m")
+    m_w, c_w, tested, walked = max_logit_fwd_walks(cpl, active, size)
+    m_p, c_p = max_logit_fwd(cpl, active, size)
+    if not (torch.equal(m_w, m_p) and torch.equal(c_w, c_p)):
+        raise SystemExit(f"K1 ({label}): the counting launch differs")
+    tied = int((c2 > 2).sum())
+    return {"dist": live_distribution(active, size, cpl.shape[1]),
+            "tested": tested, "walked": walked, "tied": tied}
+
+
+def k1_need(extra, nbt) -> dict:
+    """K1's bound over the work these inputs need: one skip test of every
+    (face, 8 x 16 tile) of a live cell, the walk of the pairs it keeps."""
+    return bound(extra["tested"] * K1_OPS_PER_TILE_TEST
+                 + extra["walked"] * K1_OPS_PER_TILE_WALK, nbt)
+
+
+def k1_report(label, rec, extra, live, cells) -> str:
+    d = extra["dist"]
+    return (f"{label}: kernel {rec['ms']:.4f} ms on events, "
+            f"{rec['device_ms']:.4f} ms of device time (CUDA graph), plain "
+            f"{rec['plain_ms']:.1f} ms, live cells {live} of {cells}, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) over the work "
+            f"these inputs need (one skip test of every (face, 8 x 16 tile) "
+            f"of a live cell, the walk of those kept), all-faces bound "
+            f"{rec['all_faces']['bound_ms']:.4f} ms over all faces of live "
+            f"cells; skip test walked "
+            f"{extra['walked']} of {extra['tested']} (face, tile) pairs "
+            f"({extra['walked'] / max(extra['tested'], 1):.2%}, skipped "
+            f"{1 - extra['walked'] / max(extra['tested'], 1):.2%}); live "
+            f"face blocks per (view, strip, x tile): max {d['max']}, mean "
+            f"{d['mean']:.3f}, none {d['none']:.2%}; m and cnt bit-equal, "
+            f"also with every cell dead, on one view and with every face "
+            f"repeated in a second block ({extra['tied']} pixels with more "
+            f"than two tied faces), cnt doubled")
+
+
+def check_k1(device, frames=16, size=512, small=(32, 64, 128, 256),
+             mesh=(84, 82)):
     """K1 against its plain version at the stage-3 shape, and at the sizes
-    that use the kernel's other pixels-per-thread instances; returns the
-    kernel's record for the {"kernels": ...} line (without launches)."""
+    that use its ragged tiles and x-tile widths, with k1_edge_cases;
+    returns the kernel's record for the {"kernels": ...} line (without
+    launches)."""
     import torch
     from vistracker_tpu_torch.ops.coverage import (
         _FBLK, _RBLK, _xblk, max_logit_fwd, max_logit_fwd_plain)
 
-    for small in (32, 64, 128, 256):
-        k1_equal(*k1_inputs(device, 1, small)[:2], small)
-    print("K1 bit-equal to the plain version at 32, 64, 128, 256 px "
-          "(3 views)")
-    cpl, active, B, n_faces = k1_inputs(device, frames, size)
+    for px in small:
+        k1_equal(*k1_inputs(device, 1, px, *mesh)[:2], px)
+    print(f"K1 bit-equal to the plain version at {', '.join(map(str, small))}"
+          " px (3 views)")
+    cpl, active, B, n_faces = k1_inputs(device, frames, size, *mesh)
     err = k1_equal(cpl, active, size)
+    extra = k1_edge_cases("hard", cpl, active, size, tie_views=6)
     ms = cuda_ms(lambda: max_logit_fwd(cpl, active, size), 20)
+    device_ms = graph_ms(lambda: max_logit_fwd(cpl, active, size), 20)
     plain_ms = host_ms(lambda: max_logit_fwd_plain(cpl, active, size))
     live = int(active.sum())
     ops = live * _FBLK * _RBLK * (_xblk(size) * K1_OPS_PER_PIXEL_FACE
                                   + K1_OPS_PER_ROW_FACE)
-    bnd = bound(ops, nbytes(cpl, active) + 2 * B * size * size * 4)
-    print(f"K1 at {B} views x {n_faces} faces x {size}^2: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.1f} ms, live cells {live} of "
-          f"{active.numel()}, bound {bnd['bound_ms']:.4f} ms "
-          f"({bnd['bound_by']}), m and cnt bit-equal")
-    return {"name": "max_logit_fwd", "route": "cuda",
-            "source": "vistracker_tpu_torch/csrc/max_logit_fwd.cu",
-            "replaces": "vistracker_tpu/ops/pallas_raster.py:140",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
-            "library_ms": None}
+    nbt = nbytes(cpl, active) + 2 * B * size * size * 4
+    rec = {"name": "max_logit_fwd", "route": "cuda",
+           "source": "vistracker_tpu_torch/csrc/max_logit_fwd.cu",
+           "replaces": "vistracker_tpu/ops/pallas_raster.py:140",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **k1_need(extra, nbt), "library_ms": None}
+    print(k1_report(f"K1 at {B} views x {n_faces} faces x {size}^2",
+                    dict(rec, device_ms=device_ms,
+                         all_faces=bound(ops, nbt)), extra, live,
+                    active.numel()))
+    return rec
 
 
 def object_mesh(rings=35, segments=36):
@@ -424,10 +527,23 @@ def check_sil(device, views=16, size=256, sigma=1.0 / 128.0, seed=1):
     ops_cell = _FBLK * _RBLK * (_xblk(size) * K1_OPS_PER_PIXEL_FACE
                                 + K1_OPS_PER_ROW_FACE)
     img = views * size * size * 4
+    fwd_bytes = nbytes(cpl, active) + 2 * img
+    extra = k1_edge_cases("soft", cpl, active, size, tie_views=views)
     fwd = {"ms": cuda_ms(lambda: max_logit_fwd(cpl, active, size), 20),
            "plain_ms": host_ms(lambda: max_logit_fwd_plain(cpl, active,
                                                            size)),
-           **bound(live * ops_cell, nbytes(cpl, active) + 2 * img)}
+           **k1_need(extra, fwd_bytes)}
+    print(k1_report(f"K1 soft at {views} views x {n_faces} faces (padded "
+                    f"{Fp}) x {size}^2",
+                    dict(fwd, device_ms=graph_ms(
+                        lambda: max_logit_fwd(cpl, active, size), 20),
+                        all_faces=bound(live * ops_cell, fwd_bytes)),
+                    extra, live, active.numel()))
+    bound_fn = functools.partial(_strip_active, cpl, size, sigma)
+    print(f"_strip_active (the soft liveness bound, every silhouette step) "
+          f"at {views} views x {Fp} faces x {size}^2: "
+          f"{cuda_ms(bound_fn, 20):.4f} ms on events, "
+          f"{graph_ms(bound_fn, 20):.4f} ms of device time")
     # the bound counts what these inputs need: the row terms and the skip
     # test of every face of a live cell, the walk of the (pixel, face)
     # pairs whose test does not skip them; all faces at every pixel of a
@@ -446,9 +562,7 @@ def check_sil(device, views=16, size=256, sigma=1.0 / 128.0, seed=1):
                          + K1_OPS_PER_ROW_FACE), bwd_bytes)
     print(f"K1 soft + K2 at {views} views x {n_faces} faces (padded {Fp}) x "
           f"{size}^2, sigma {sigma:.5f}: live cells {live} of "
-          f"{active.numel()}; forward {fwd['ms']:.4f} ms (plain "
-          f"{fwd['plain_ms']:.1f} ms, bound {fwd['bound_ms']:.4f} ms by "
-          f"{fwd['bound_by']}), m and cnt bit-equal; backward "
+          f"{active.numel()}; forward {fwd['ms']:.4f} ms (above); backward "
           f"{bwd['ms']:.4f} ms (plain {bwd['plain_ms']:.1f} ms, bound "
           f"{bwd['bound_ms']:.4f} ms by {bwd['bound_by']} over the work "
           f"these inputs need, all-faces bound {all_faces['bound_ms']:.4f} "
@@ -661,12 +775,18 @@ def check_k4(device, N=10000, M=10000, seed=4):
     """K4 against nn_min_sqdist_plain at the evaluate shape (one cloud of
     10,000 surface samples against another, metre scale, 2.2 m from the
     camera), unmasked as the chamfer calls it and with a partial y-mask;
-    on a batch of three 129-point clouds whose middle row has no valid y
-    point (1e10, index 0) and on a single point; N = 10,000 = 78 x 128 +
-    16 already leaves a partial block. Min and argmin bit-equal. Times at
-    the evaluate shape; the library time is torch.cdist(x, y[valid])
-    .square().amin(1), three calls and a gather, with TF32 off."""
+    with y made of copies of M/5 and of M/80 points (exact distance ties
+    between y points that far apart in index, in other blocks' splits and
+    other warps' slices: the least index must win); on a batch of three
+    129-point clouds whose middle row has no valid y point (1e10, index 0),
+    on a single point, and with 5 y points (fewer than a split, most warps
+    with none); N = 10,000 = 78 x 128 + 16 already leaves a partial block.
+    Min and argmin bit-equal, and two runs equal. Times at the evaluate
+    shape (events and device time; device time also at one split fewer
+    and one more than the wrapper's rule takes); the library time is torch.cdist(x,
+    y[valid]).square().amin(1), three calls and a gather, with TF32 off."""
     import torch
+    from vistracker_tpu_torch.ops import chamfer
     from vistracker_tpu_torch.ops.chamfer import (nn_min_sqdist_fwd,
                                                   nn_min_sqdist_plain)
 
@@ -683,19 +803,29 @@ def check_k4(device, N=10000, M=10000, seed=4):
     yb = t(rng.randn(3, 700, 3) * 0.3 + [0, 0, 2.2])
     vb = t(rng.rand(3, 700) < 0.5, torch.bool)
     vb[1] = False
+    cases = [("unmasked", (x, y, full)), ("masked", (x, y, part))]
+    for copies in (5, 80):
+        yc = y[:, :M // copies].repeat(1, copies, 1)
+        cases.append((f"{copies} copies", (x, yc, full[:, :yc.shape[1]])))
+    cases += [("batch", (xb, yb, vb)), ("one point", (x[:, :1], y, part)),
+              ("5 y points", (x, y[:, :5], full[:, :5]))]
     err = 0.0
-    for label, args in (("unmasked", (x, y, full)), ("masked", (x, y, part)),
-                        ("batch", (xb, yb, vb)),
-                        ("one point", (x[:, :1], y, part))):
+    for label, args in cases:
         d_k, i_k = nn_min_sqdist_fwd(*args)
         d_p, i_p = nn_min_sqdist_plain(*args)
+        d_2, i_2 = nn_min_sqdist_fwd(*args)
         torch.cuda.synchronize()
         if not (torch.equal(d_k, d_p) and torch.equal(i_k, i_p)):
             raise SystemExit(
                 f"K4 kernel != plain version ({label}): "
                 f"{int((d_k != d_p).sum())} distances, "
                 f"{int((i_k != i_p).sum())} indices of {d_k.numel()}")
+        if not (torch.equal(d_k, d_2) and torch.equal(i_k, i_2)):
+            raise SystemExit(f"K4 ({label}): two runs differ")
         err = max(err, float((d_k - d_p).abs().max()))
+        if label.endswith("copies") and not bool(
+                (i_k < args[1].shape[1] // int(label.split()[0])).all()):
+            raise SystemExit(f"K4 ({label}): a tie went to a later copy")
         if label == "batch" and not (bool((d_k[1] == 1e10).all())
                                      and bool((i_k[1] == 0).all())):
             raise SystemExit("K4: the all-masked row is not 1e10 / index 0")
@@ -703,18 +833,39 @@ def check_k4(device, N=10000, M=10000, seed=4):
     def library():
         return torch.cdist(x[0], y[0][full[0]]).square().amin(1)
 
+    # the wrapper's split rule against its neighbours at this shape, each
+    # bit-equal too
+    sms = chamfer._sm_count(device.index or 0) if device.type == "cuda" \
+        else 1
+    rule = chamfer._splits(-(-N // chamfer._X_BLOCK), M, sms)
+    d_p, i_p = nn_min_sqdist_plain(x, y, full)
+    split_ms = {}
+    for splits in sorted({max(rule - 1, 1), rule, rule + 1}):
+        with mock.patch.object(chamfer, "_splits", lambda *a: splits):
+            d_k, i_k = nn_min_sqdist_fwd(x, y, full)
+            if not (torch.equal(d_k, d_p) and torch.equal(i_k, i_p)):
+                raise SystemExit(f"K4 at {splits} splits != plain version")
+            split_ms[splits] = graph_ms(
+                lambda: nn_min_sqdist_fwd(x, y, full), 20)
     ms = cuda_ms(lambda: nn_min_sqdist_fwd(x, y, full), 20)
+    device_ms = graph_ms(lambda: nn_min_sqdist_fwd(x, y, full), 20)
     plain_ms = host_ms(lambda: nn_min_sqdist_plain(x, y, full))
     library_ms = cuda_ms(library, 20)
     lib_err = float((library() - nn_min_sqdist_fwd(x, y, full)[0][0])
                     .abs().max())
     bnd = bound(N * M * K4_OPS_PER_PAIR, nbytes(x, y, full) + 8 * N)
-    print(f"K4 at {N} vs {M} points (one cloud a call): kernel {ms:.4f} ms, "
+    print(f"K4 at {N} vs {M} points (one cloud a call): kernel {ms:.4f} ms "
+          f"on events, {device_ms:.4f} ms of device time (CUDA graph), "
           f"plain {plain_ms:.1f} ms, library (cdist + square + amin, a "
           f"gather before) {library_ms:.4f} ms (max |diff| to the kernel "
           f"{lib_err:.3e}), bound {bnd['bound_ms']:.4f} ms by "
-          f"{bnd['bound_by']}; min and argmin bit-equal unmasked, masked, "
-          f"on a batch with an all-masked row and on one point")
+          f"{bnd['bound_by']}; min and argmin bit-equal and two runs equal "
+          f"unmasked, masked, on y of 5 and 80 copies (ties to the least "
+          f"index), on a batch with an all-masked row, on one point and on "
+          f"5 y points")
+    print("K4 splits of y at this shape (device time, bit-equal each): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in split_ms.items())
+          + f"; the wrapper's rule takes {rule}")
     return {"name": "nn_min_sqdist", "route": "cuda",
             "source": "vistracker_tpu_torch/csrc/label_nn.cu",
             "replaces": "vistracker_tpu/ops/pallas_nn.py:28",
@@ -1304,7 +1455,7 @@ def main():
             if any(w in line for w in ("properties", "registers", "spill")):
                 print(f"  {name}: {line.strip()}")
     print(f"built {list(KERNEL_SOURCES)} in {time.perf_counter() - t0:.1f} s")
-    for name in ("max_logit_bwd", "label_nn"):
+    for name in KERNEL_SOURCES:
         for kernel, n_ins, n_min in sass_loops(name):
             print(f"  {name} SASS inner loop of {kernel}: {n_ins} "
                   f"instructions on its common path, {n_min} FMNMX")

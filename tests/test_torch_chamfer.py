@@ -187,3 +187,116 @@ def test_kernel_bit_equal_on_the_card(rng):
     dk, ik = nn_min_sqdist_fwd(x, y, v)
     dp, ip = nn_min_sqdist_plain(x, y, v)
     assert torch.equal(dk, dp) and torch.equal(ik, ip)
+
+
+def _merge_in_order(x, y, valid, splits, warps=8):
+    """K4's cut and merge written out in PyTorch: y cut into `splits`
+    contiguous ranges, each into `warps` slices; each slice's (min, least
+    index) by the plain version, (1e10, 0) where it has no valid point, as
+    the kernel's warps keep; merged in ascending y order with a strict <."""
+    M = y.shape[1]
+    best_d = best_j = None
+    for s in range(splits):
+        lo, hi = M * s // splits, M * (s + 1) // splits
+        for w in range(warps):
+            a = lo + (hi - lo) * w // warps
+            b = lo + (hi - lo) * (w + 1) // warps
+            if a == b:
+                d = torch.full(x.shape[:2], 1e10)
+                j = torch.zeros(x.shape[:2], dtype=torch.int64)
+            else:
+                d, j = nn_min_sqdist_plain(x, y[:, a:b], valid[:, a:b])
+                j = torch.where(d < 1e10, j + a, 0)
+            if best_d is None:
+                best_d, best_j = d, j
+            else:
+                take = d < best_d
+                best_d = torch.where(take, d, best_d)
+                best_j = torch.where(take, j, best_j)
+    return best_d, best_j
+
+
+@pytest.mark.parametrize("copies, splits", [(5, 5), (40, 3), (7, 1)])
+def test_split_merge_rule_equals_plain_on_exact_ties(rng, copies, splits):
+    """y made of copies of one cloud: every nearest point is tied with its
+    copies, far apart in index, in other splits and other warps' slices.
+    The kernel's merge rule (ascending y order, strict <) gives the plain
+    version's min and least index, also with a mask that leaves a
+    slice without a valid point."""
+    x = torch.as_tensor(_cloud(rng, 2, 60, 3))
+    y = torch.as_tensor(_cloud(rng, 2, 23, 3)).repeat(1, copies, 1)
+    for valid in (torch.ones(y.shape[:2], dtype=torch.bool),
+                  torch.as_tensor(rng.rand(*y.shape[:2]) < 0.4)):
+        d, j = _merge_in_order(x, y, valid, splits)
+        d_p, j_p = nn_min_sqdist_plain(x, y, valid)
+        assert torch.equal(d, d_p) and torch.equal(j, j_p)
+        assert bool((j_p < 23).all()) or not bool(valid.all())
+
+
+def test_distances_never_negative_zero(rng):
+    """d = max((|x|^2 + |y|^2) - 2 x.y, 0) is +0 or positive, never -0, so
+    the float bits of d order like its values (the order a packed-key
+    merge would need): |v|^2 is a sum of squares (+0 at least), so the
+    subtraction's left operand is never -0, and a rounded difference of
+    equal values is +0. Coincident points, points whose expansion rounds
+    below 0 and exact zeros."""
+    x = _cloud(rng, 1, 400, 3) + np.float32(2.2)
+    y = np.concatenate([x, x + np.float32(1e-7), np.zeros((1, 5, 3),
+                                                          np.float32),
+                        -x], 1)
+    x = np.concatenate([x, np.zeros((1, 3, 3), np.float32)], 1)
+    xt, yt = torch.as_tensor(x), torch.as_tensor(y)
+    xx = (xt[..., 0] * xt[..., 0] + xt[..., 1] * xt[..., 1]) \
+        + xt[..., 2] * xt[..., 2]
+    yy = (yt[..., 0] * yt[..., 0] + yt[..., 1] * yt[..., 1]) \
+        + yt[..., 2] * yt[..., 2]
+    xy = (xt[:, :, None, 0] * yt[:, None, :, 0]
+          + xt[:, :, None, 1] * yt[:, None, :, 1]) \
+        + xt[:, :, None, 2] * yt[:, None, :, 2]
+    raw = (xx[:, :, None] + yy[:, None, :]) - 2.0 * xy
+    assert bool((raw < 0).any()) and bool((raw == 0).any())
+    assert not bool(torch.signbit(raw[raw == 0]).any())
+    d, _ = nn_min_sqdist_plain(xt, yt, torch.ones(yt.shape[:2], dtype=bool))
+    assert bool((d == 0).any()) and not bool(torch.signbit(d).any())
+
+
+def test_splits_fill_the_card_from_shapes():
+    """The kernel's y split (ops/chamfer.py:_splits): at the evaluate shape
+    (79 blocks of x on 132 SMs) at least two blocks an SM, each range at
+    least 256 points; one range where y is short."""
+    s = chamfer._splits(79, 10000, 132)
+    assert 79 * s >= 2 * 132 and 10000 // s >= 256
+    assert chamfer._splits(79, 100, 132) == 1
+    assert chamfer._splits(1, 10000, 132) == 39
+    assert chamfer._splits(2000, 10000, 132) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ties across blocks", "ties across warps",
+                                  "M under one split", "N = 1", "two runs"])
+def test_kernel_edge_cases_on_the_card(rng, case):
+    """K4 on the card where its cut of y could go wrong: exact ties between
+    y copies in other blocks' ranges and other warps' slices (the least
+    index wins), fewer y points than a split, one x point, and the same
+    bits on two runs; each bit-equal to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    x = torch.as_tensor(_cloud(rng, 1, 3000, 3)).cuda()
+    y = torch.as_tensor(_cloud(rng, 1, 8000, 3)).cuda()
+    if case == "ties across blocks":
+        y = y[:, :1600].repeat(1, 5, 1)
+    elif case == "ties across warps":
+        y = y[:, :100].repeat(1, 80, 1)
+    elif case == "M under one split":
+        y = y[:, :7]
+    elif case == "N = 1":
+        x = x[:, :1]
+    v = torch.ones(y.shape[:2], dtype=torch.bool, device="cuda")
+    dk, ik = nn_min_sqdist_fwd(x, y, v)
+    dp, ip = nn_min_sqdist_plain(x, y, v)
+    assert torch.equal(dk, dp) and torch.equal(ik, ip)
+    if case.startswith("ties"):
+        assert int(ik.max()) < (1600 if case.endswith("blocks") else 100)
+    if case == "two runs":
+        d2, i2 = nn_min_sqdist_fwd(x, y, v)
+        assert torch.equal(dk, d2) and torch.equal(ik, i2)

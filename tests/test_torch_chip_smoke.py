@@ -38,15 +38,25 @@ def test_check_k3_on_the_cpu(no_card, capsys):
 
 
 def test_check_sil_on_the_cpu(no_card, capsys):
-    fwd, bwd = chip_smoke.check_sil(torch.device("cpu"), views=2, size=64)
+    seen = []
+
+    def spy(ops, nbt):
+        seen.append(real(ops, nbt)["bound_ms"])
+        return real(ops, nbt)
+
+    real = chip_smoke.bound
+    with mock.patch.object(chip_smoke, "bound", spy):
+        fwd, bwd = chip_smoke.check_sil(torch.device("cpu"), views=2,
+                                        size=64)
     assert set(fwd) == set(bwd) == RECORD_KEYS
     assert (fwd["name"], bwd["name"]) == ("max_logit_fwd_soft",
                                           "max_logit_bwd")
     assert fwd["max_abs_err"] == 0.0 and bwd["bound_ms"] > 0
-    # K2's record counts what the inputs need: below the all-faces bound
-    # that K1 soft's record keeps over the same live cells
-    assert bwd["bound_ms"] < fwd["bound_ms"]
-    assert "all-faces bound" in capsys.readouterr().out
+    # K1 soft's and K2's records count what the inputs need: below the
+    # all-faces bound over the same live cells, the largest bound the
+    # phase computes, printed beside them
+    assert 0 < fwd["bound_ms"] < max(seen) and bwd["bound_ms"] < max(seen)
+    assert capsys.readouterr().out.count("all-faces bound") == 2
 
 
 def test_k2_walk_share_counts_the_walked_pairs():
@@ -84,3 +94,39 @@ def test_compatible_pairs_counts_the_plan():
     plan = label_nn_plan(lx * 100, wide, valid)
     assert int((plan.hi - plan.lo).sum()) == 20
     assert chip_smoke.compatible_pairs(lx * 100, wide, valid) == 5
+
+
+def test_check_k1_on_the_cpu(no_card, capsys):
+    """check_k1 at 64 px on one frame of a small sphere: its edge cases
+    (every cell dead, one view, faces repeated in a second block), skip
+    counts and live-block distribution run end to end."""
+    rec = chip_smoke.check_k1(torch.device("cpu"), frames=1, size=64,
+                              small=(32,), mesh=(12, 10))
+    assert set(rec) == RECORD_KEYS and rec["name"] == "max_logit_fwd"
+    assert rec["max_abs_err"] == 0.0 and rec["bound_ms"] > 0
+    out = capsys.readouterr().out
+    assert "skip test walked" in out and "live face blocks" in out
+    assert "all-faces bound" in out
+    assert "cnt doubled" in out
+
+
+def test_live_distribution_counts_blocks_per_row():
+    """Live face blocks per (view, strip, x tile): at 512 px a row of the
+    liveness holds 4 x tiles of 3 face blocks each."""
+    active = torch.zeros((2, 4 * 3), dtype=torch.int32)
+    active[0, :3] = 1          # x tile 0 of row 0: 3 live blocks
+    active[1, 3 * 3 + 1] = 1   # x tile 3 of row 1: 1
+    d = chip_smoke.live_distribution(active, size=512, n_faces_padded=384)
+    assert d == {"max": 3, "mean": 0.5, "none": 6 / 8}
+
+
+def test_check_k4_on_the_cpu(no_card, capsys):
+    """check_k4 at 300 x 200 points: the tie cases (y of copies), the
+    all-masked row, one point, fewer y points than a split and the
+    two-run check run end to end."""
+    rec = chip_smoke.check_k4(torch.device("cpu"), N=300, M=200)
+    assert set(rec) == RECORD_KEYS and rec["name"] == "nn_min_sqdist"
+    assert rec["max_abs_err"] == 0.0
+    out = capsys.readouterr().out
+    assert "copies" in out and "5 y points" in out
+    assert "K4 splits of y" in out

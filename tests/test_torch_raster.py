@@ -202,3 +202,159 @@ def test_k1_kernel_matches_plain_on_cuda():
         assert C.max_logit_fwd.launches == before + 1
         m_p, cnt_p = C.max_logit_fwd_plain(cpl, active, size)
         assert torch.equal(m, m_p) and torch.equal(cnt, cnt_p)
+
+
+def _inputs(rng, scene, size):
+    v2d, faces = SCENES[scene](rng)
+    cpl, *b = C._planes(torch.from_numpy(v2d), torch.from_numpy(faces), True)
+    return cpl, C._strip_active_bbox(*b, size)
+
+
+@pytest.mark.parametrize("scene, size", [("random", 32), ("offscreen", 64),
+                                         ("compact", 64)])
+def test_split_and_merge_over_face_blocks_equals_plain(rng, scene, size):
+    """The (m, cnt) of any split of the face blocks, merged pixel by pixel
+    with "greater replaces, equal adds", is the whole input's: max is
+    exact and integer counts add exactly, so a kernel may cut its face
+    blocks into units in any order and keep bit-equality. Here the even
+    and the odd blocks (each with its own liveness, the rest dead), merged
+    both ways round, on scenes whose ties cross blocks."""
+    cpl, active = _inputs(rng, scene, size)
+    m, cnt = C.max_logit_fwd_plain(cpl, active, size)
+    blocks = torch.arange(active.shape[1]) % (cpl.shape[1] // C._FBLK)
+    parts = [C.max_logit_fwd_plain(cpl, active * (blocks % 2 == k), size)
+             for k in (0, 1)]
+    for (m1, c1), (m2, c2) in (parts, parts[::-1]):
+        mm = torch.maximum(m1, m2)
+        cc = torch.where(m2 > m1, c2, torch.where(m2 == m1, c1 + c2, c1))
+        assert torch.equal(mm, m) and torch.equal(cc, cnt)
+    # the same inputs with every face repeated in a second set of blocks:
+    # every tie then spans two blocks
+    n_x = size // C._xblk(size)
+    act = active.reshape(active.shape[0], n_x, -1)
+    m2, c2 = C.max_logit_fwd_plain(
+        torch.cat([cpl, cpl], 1),
+        torch.cat([act, act], 2).reshape(active.shape[0], -1), size)
+    assert torch.equal(m2, m) and torch.equal(c2, 2 * cnt)
+
+
+def _tile_ranges(cpl, size, b, r, x, start, last):
+    """The kernel's per-face (least, greatest) corner values over the tile
+    of columns start..last of x tile x, rows of strip r, in fma32."""
+    f32 = C.fma32
+    coord = f32(torch.arange(size, dtype=torch.float32),
+                torch.full((size,), 2.0 / (size - 1)),
+                torch.full((size,), -1.0))
+    xb = C._xblk(size)
+    a, bb, c = (cpl[b, :, k::3] for k in range(3))
+    py = coord[[r * C._RBLK, r * C._RBLK + C._RBLK - 1]]
+    i0, i1 = f32(bb, py[0].expand_as(bb), c), f32(bb, py[1].expand_as(bb), c)
+    px = coord[[x * xb + start, x * xb + last]]
+    e = [[f32(a, p.expand_as(a), i) for p in px]
+         for i in (torch.minimum(i0, i1), torch.maximum(i0, i1))]
+    return (torch.minimum(*e[0]).amin(-1), torch.maximum(*e[1]).amin(-1))
+
+
+@pytest.mark.parametrize("scene, size", [("random", 32), ("offscreen", 40),
+                                         ("compact", 64)])
+def test_fwd_tile_bound_skips_no_winner(rng, scene, size):
+    """The forward twin of K2's chunk bound (csrc/max_logit_fwd.cu): over
+    an 8 x 16 tile each face's value lies between its least and greatest
+    corner values, in the kernel's single-rounded arithmetic; so the
+    tile's T0 (max of the least) is at most m at every pixel and no face
+    that wins or ties a pixel of the tile has its greatest below the
+    tile's least m. Then the kernel's whole algorithm
+    (max_logit_fwd_walks_plain: T0, batches of 32, the running threshold)
+    gives max_logit_fwd_plain's m and cnt, skipping some pairs. 40 px has
+    a ragged last tile."""
+    cpl, active = _inputs(rng, scene, size)
+    m, cnt = C.max_logit_fwd_plain(cpl, active, size)
+    xb = C._xblk(size)
+    n_x, n_fblk = size // xb, cpl.shape[1] // C._FBLK
+    live = active.reshape(cpl.shape[0], size // C._RBLK, n_x, n_fblk) != 0
+    checked = 0
+    for b, r, x in torch.nonzero(live.any(-1)).tolist():
+        faces = torch.cat([torch.arange(f * C._FBLK, (f + 1) * C._FBLK)
+                           for f in torch.nonzero(live[b, r, x]).flatten()])
+        for start in range(0, xb, 16):
+            last = min(start + 16, xb) - 1
+            low, high = (t[faces] for t in _tile_ranges(
+                cpl, size, b, r, x, start, last))
+            cols = slice(x * xb + start, x * xb + last + 1)
+            rows = slice(r * C._RBLK, (r + 1) * C._RBLK)
+            tile_m = m[b, rows, cols]
+            assert float(low.max()) <= float(tile_m.min())
+            # every face's plane min over the tile, as the plain version
+            px = torch.arange(size, dtype=torch.float32)
+            coord = C.fma32(px, torch.full_like(px, 2.0 / (size - 1)),
+                            torch.full_like(px, -1.0))
+            fc = cpl[b, faces]
+            inner = C.fma32(fc[:, 1::3, None, None],
+                            coord[rows][None, None, :, None],
+                            fc[:, 2::3, None, None])
+            vals = C.fma32(fc[:, 0::3, None, None].expand_as(
+                inner.expand(-1, -1, -1, last + 1 - start)),
+                coord[cols][None, None, None, :].expand(
+                    len(faces), 5, C._RBLK, -1),
+                inner.expand(-1, -1, -1, last + 1 - start)).amin(1)
+            assert bool((high[:, None, None] >= vals).all())
+            assert bool((low[:, None, None] <= vals).all())
+            wins = (vals == tile_m[None]).any(-1).any(-1)
+            assert bool((high[wins] >= float(tile_m.min())).all())
+            checked += 1
+    assert checked > 0
+    m_w, c_w, tested, walked = C.max_logit_fwd_walks_plain(cpl, active, size)
+    assert torch.equal(m_w, m) and torch.equal(c_w, cnt)
+    assert 0 < walked < tested
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["every cell dead", "one view",
+                                  "ties across blocks", "skip counts",
+                                  "misaligned planes"])
+def test_k1_kernel_edge_cases_on_cuda(case):
+    """K1 on the card where a cut of its work could go wrong, bit-equal
+    to the plain version: no live cell (m = -1e9, cnt = 0 everywhere), one
+    view, every face repeated in a second block (cnt doubles), and the
+    kernel's skip counts equal to max_logit_fwd_walks_plain's, at 40 px
+    (a ragged tile) and 384 px (three x tiles); planes that do not start
+    on 16 bytes (the kernel stages float4) raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.RandomState(0)
+    v2d, faces = _scene_compact(rng, n=600)
+    dev = torch.device("cuda")
+    cpl, *b = C._planes(torch.from_numpy(v2d).to(dev),
+                        torch.from_numpy(faces).to(dev), True)
+    cpl = cpl.contiguous()
+    for size in (40, 384):
+        active = C._strip_active_bbox(*b, size).contiguous()
+        rows = size // C._RBLK
+        if case == "every cell dead":
+            m, cnt = C.max_logit_fwd(cpl, torch.zeros_like(active), size)
+            assert bool((m == -1e9).all()) and bool((cnt == 0).all())
+        elif case == "one view":
+            m, cnt = C.max_logit_fwd(cpl[:1], active[:rows], size)
+            m_p, c_p = C.max_logit_fwd_plain(cpl[:1], active[:rows], size)
+            assert torch.equal(m, m_p) and torch.equal(cnt, c_p)
+        elif case == "ties across blocks":
+            act = active.reshape(active.shape[0], size // C._xblk(size), -1)
+            twice = torch.cat([cpl, cpl], 1).contiguous()
+            act2 = torch.cat([act, act], 2).reshape(active.shape[0], -1)
+            m2, c2 = C.max_logit_fwd(twice, act2.contiguous(), size)
+            m_p, c_p = C.max_logit_fwd_plain(twice, act2, size)
+            m, cnt = C.max_logit_fwd(cpl, active, size)
+            assert torch.equal(m2, m_p) and torch.equal(c2, c_p)
+            assert torch.equal(m2, m) and torch.equal(c2, 2 * cnt)
+        elif case == "misaligned planes":
+            flat = torch.empty(cpl.numel() + 1, device=dev)
+            shifted = flat[1:].view(cpl.shape)
+            shifted.copy_(cpl)
+            with pytest.raises(ValueError):
+                C.max_logit_fwd(shifted, active, size)
+        else:
+            got = C.max_logit_fwd_walks(cpl, active, size)
+            want = C.max_logit_fwd_walks_plain(cpl, active, size)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+            assert got[2:] == want[2:]

@@ -68,14 +68,30 @@
 // the 12; every one is a plain FP32 instruction, so the kernel cannot pass
 // about half of a bound that counts an FMA as two operations.
 //
-// K4 (label_nn_kernel<false>, entry vt_nn_min) keeps the first K3 design:
-// one thread per x point walking every y point, y staged in tiles of 1024
-// as (y0, y1, y2, |y|^2) plus validity, read by all threads at the same
-// address (a broadcast), strict < over ascending j. The label test is the
-// template parameter it compiles out: it reads and indexes no label array
-// (null pointers). One thread per x point underfills the card at B = 1
-// (the evaluation's 10,000 points are 79 blocks of 128 threads on 132
-// SMs). Bound: N x M pairs at 11 operations a pair (no label compare).
+// K4 design (nn_min_kernel, entry vt_nn_min): fill the card at one cloud
+// a call. The evaluation chamfer calls it with one cloud of 10,000 points
+// against another; one thread per x point would be 79 blocks on 132 SMs.
+//   - A block owns 128 x points, 4 per lane, held in registers by each of
+//     its 8 warps, and one of `splits` contiguous ranges of y; each warp
+//     takes an eighth of the range, ascending. The wrapper picks `splits`
+//     from the shapes alone (ops/chamfer.py:_splits): the most that keep
+//     the grid within three blocks an SM, each range at least 256 points
+//     (5 at 10,000 x 10,000: 395 blocks on 132 SMs).
+//   - A warp stages 128 y points at a time in its own shared memory as
+//     (y0, y1, y2, |y|^2), |y|^2 = +inf for an invalid point, so its
+//     distance is +inf and never wins: no validity test in the loop. One
+//     staged point (a broadcast read) feeds the 4 x points of a lane.
+//   - Each warp takes a candidate only on a strict <, so it keeps the least
+//     j among its ties; a warp with no candidate keeps (1e10, 0). The
+//     block merges its 8 warps in ascending order with a strict <, and so
+//     does a second launch over the splits ((splits, B, N) partial minima
+//     and indices, 8 bytes a slot: 400 KB at 10,000 points x 5 splits;
+//     none with one split). Earlier ranges hold smaller j, so every tie
+//     goes to the least j: min and argmin are the plain version's, with the
+//     same bits on every run (no atomics).
+// Bound: N x M pairs at 11 operations a pair (x.y 5, distance 3, the
+// running min 2, 1 for the mask, which the +inf encoding removes) against
+// 67 TFLOP/s; plain FP32 instructions, so about half of it at best.
 
 #include <climits>
 
@@ -83,8 +99,6 @@
 
 namespace {
 
-constexpr int kThreads = 128;   // K4: x points per block
-constexpr int kTile = 1024;     // K4: y points staged at a time
 constexpr float kNone = 1e10f;  // distance when no compatible y exists
 
 constexpr int kWarps = 8;               // K3: warps splitting a y range
@@ -97,70 +111,132 @@ constexpr int kSortWarps = kSortThreads / 32;
 constexpr int kBuckets = 32;                // plan: widest counted labels
 constexpr long long kSentinel = LLONG_MAX;  // plan: key of an invalid y
 
+constexpr int kNnWarps = 8;            // K4: warps splitting a y range
+constexpr int kNnPer = 4;              // K4: x points per lane
+constexpr int kNnX = 32 * kNnPer;      // K4: x points per block
+constexpr int kNnStage = 32 * kNnPer;  // K4: y points a warp stages at once
+
 __device__ __forceinline__ float sq_norm(float v0, float v1, float v2) {
   return __fadd_rn(__fadd_rn(__fmul_rn(v0, v0), __fmul_rn(v1, v1)),
                    __fmul_rn(v2, v2));
 }
 
-template <bool kLabels>
-__global__ void __launch_bounds__(kThreads)
-label_nn_kernel(const float* __restrict__ x, const int* __restrict__ lx,
-                const float* __restrict__ y, const int* __restrict__ ly,
-                const unsigned char* __restrict__ y_valid,
-                float* __restrict__ min_out, int* __restrict__ idx_out,
-                int n, int m) {
-  __shared__ float4 ys[kTile];
-  __shared__ int ls[kTile];
-  __shared__ unsigned char vs[kTile];
-  const int b_idx = blockIdx.y;
+// K4: block (x tile, split, batch element); see the design note. With
+// one split the block writes min_out / idx_out, else its split's slot of
+// part_d / part_j (splits, B, N).
+__global__ void __launch_bounds__(kNnWarps * 32)
+nn_min_kernel(const float* __restrict__ x, const float* __restrict__ y,
+              const unsigned char* __restrict__ y_valid,
+              float* __restrict__ part_d, int* __restrict__ part_j,
+              float* __restrict__ min_out, long long* __restrict__ idx_out,
+              int n, int m, int splits) {
+  __shared__ float4 ys[kNnWarps][kNnStage];
+  __shared__ float warp_d[kNnWarps][kNnX];
+  __shared__ int warp_j[kNnWarps][kNnX];
   const int tid = threadIdx.x;
-  const int i = blockIdx.x * kThreads + tid;
-  const bool has_point = i < n;
-  const long long xi = static_cast<long long>(b_idx) * n + (has_point ? i : 0);
-  const float x0 = x[xi * 3], x1 = x[xi * 3 + 1], x2 = x[xi * 3 + 2];
-  const float xx = sq_norm(x0, x1, x2);
-  int label = 0;
-  const int* lb = nullptr;
-  if constexpr (kLabels) {
-    label = lx[xi];
-    lb = ly + static_cast<long long>(b_idx) * m;
-  }
-  const float* yb = y + static_cast<long long>(b_idx) * m * 3;
-  const unsigned char* vb = y_valid + static_cast<long long>(b_idx) * m;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int split = blockIdx.y;
+  const long long b_idx = blockIdx.z;
+  const int p0 = blockIdx.x * kNnX;
+  const float* xb = x + b_idx * n * 3;
+  const float* yb = y + b_idx * m * 3;
+  const unsigned char* vb = y_valid + b_idx * m;
 
-  float best = kNone;
-  int best_j = 0;
-  for (int j0 = 0; j0 < m; j0 += kTile) {
-    const int count = min(kTile, m - j0);
-    __syncthreads();  // the previous tile's reads are done
-    for (int j = tid; j < count; j += kThreads) {
-      const float y0 = yb[(j0 + j) * 3], y1 = yb[(j0 + j) * 3 + 1];
-      const float y2 = yb[(j0 + j) * 3 + 2];
-      ys[j] = make_float4(y0, y1, y2, sq_norm(y0, y1, y2));
-      if constexpr (kLabels) ls[j] = lb[j0 + j];
-      vs[j] = vb[j0 + j];
+  float x0[kNnPer], x1[kNnPer], x2[kNnPer], xx[kNnPer], best[kNnPer];
+  int best_j[kNnPer];
+#pragma unroll
+  for (int r = 0; r < kNnPer; ++r) {
+    const int p = min(p0 + lane + 32 * r, n - 1);  // a ragged tail repeats
+    x0[r] = xb[p * 3];
+    x1[r] = xb[p * 3 + 1];
+    x2[r] = xb[p * 3 + 2];
+    xx[r] = sq_norm(x0[r], x1[r], x2[r]);
+    best[r] = kNone;
+    best_j[r] = 0;
+  }
+  // the block's y range, then the warp's eighth of it
+  const long long y_lo = static_cast<long long>(m) * split / splits;
+  const long long y_hi = static_cast<long long>(m) * (split + 1) / splits;
+  const int w_lo = static_cast<int>(y_lo + (y_hi - y_lo) * warp / kNnWarps);
+  const int w_hi =
+      static_cast<int>(y_lo + (y_hi - y_lo) * (warp + 1) / kNnWarps);
+  float4* stage = ys[warp];
+  for (int s0 = w_lo; s0 < w_hi; s0 += kNnStage) {
+    const int count = min(kNnStage, w_hi - s0);
+    __syncwarp();  // the previous stage's reads are done
+    for (int q = lane; q < count; q += 32) {
+      const int j = s0 + q;
+      const float v0 = yb[j * 3], v1 = yb[j * 3 + 1], v2 = yb[j * 3 + 2];
+      stage[q] = make_float4(v0, v1, v2, vb[j] != 0
+                                             ? sq_norm(v0, v1, v2)
+                                             : __int_as_float(0x7f800000));
     }
-    __syncthreads();
-    for (int j = 0; j < count; ++j) {
-      const float4 q = ys[j];
-      const float xy = __fadd_rn(
-          __fadd_rn(__fmul_rn(x0, q.x), __fmul_rn(x1, q.y)),
-          __fmul_rn(x2, q.z));
-      float d = fmaxf(__fsub_rn(__fadd_rn(xx, q.w), __fmul_rn(2.0f, xy)),
-                      0.0f);
-      bool ok = vs[j] != 0;
-      if constexpr (kLabels) ok = ok && ls[j] == label;
-      d = ok ? d : kNone;
-      if (d < best) {
-        best = d;
-        best_j = j0 + j;
+    __syncwarp();
+    for (int q = 0; q < count; ++q) {
+      const float4 v = stage[q];
+#pragma unroll
+      for (int r = 0; r < kNnPer; ++r) {
+        const float xy = __fadd_rn(
+            __fadd_rn(__fmul_rn(x0[r], v.x), __fmul_rn(x1[r], v.y)),
+            __fmul_rn(x2[r], v.z));
+        const float d = fmaxf(
+            __fsub_rn(__fadd_rn(xx[r], v.w), __fmul_rn(2.0f, xy)), 0.0f);
+        if (d < best[r]) {
+          best[r] = d;
+          best_j[r] = s0 + q;
+        }
       }
     }
   }
-  if (has_point) {
-    min_out[xi] = best;
-    idx_out[xi] = best_j;
+#pragma unroll
+  for (int r = 0; r < kNnPer; ++r) {
+    warp_d[warp][lane + 32 * r] = best[r];
+    warp_j[warp][lane + 32 * r] = best_j[r];
   }
+  __syncthreads();
+  const int p = p0 + tid;
+  if (tid < kNnX && p < n) {
+    float d = warp_d[0][tid];
+    int j = warp_j[0][tid];
+    for (int w = 1; w < kNnWarps; ++w) {  // ascending y: a tie keeps j
+      if (warp_d[w][tid] < d) {
+        d = warp_d[w][tid];
+        j = warp_j[w][tid];
+      }
+    }
+    const long long o = b_idx * n + p;
+    if (splits == 1) {
+      min_out[o] = d;
+      idx_out[o] = j;
+    } else {
+      const long long slot = static_cast<long long>(split) * gridDim.z * n + o;
+      part_d[slot] = d;
+      part_j[slot] = j;
+    }
+  }
+}
+
+// K4's second pass: per x point the splits in ascending order, a strict <.
+__global__ void __launch_bounds__(256)
+nn_min_merge_kernel(const float* __restrict__ part_d,
+                    const int* __restrict__ part_j,
+                    float* __restrict__ min_out,
+                    long long* __restrict__ idx_out, long long total,
+                    int splits) {
+  const long long o = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (o >= total) return;
+  float d = part_d[o];
+  int j = part_j[o];
+  for (int s = 1; s < splits; ++s) {
+    const float ds = part_d[s * total + o];
+    if (ds < d) {
+      d = ds;
+      j = part_j[s * total + o];
+    }
+  }
+  min_out[o] = d;
+  idx_out[o] = j;
 }
 
 // One warp's slice [q0, q1) of a staged K3 tile against the lane's kPer x
@@ -467,18 +543,27 @@ extern "C" int vt_label_nn(const float* x, const float* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4: x (B, N, 3) f32, y (B, M, 3) f32, y_valid (B, M) uint8, min_out
-// (B, N) f32, idx_out (B, N) int32. Returns cudaGetLastError() after the
-// launch.
+// K4: x (B, N, 3) f32, y (B, M, 3) f32, y_valid (B, M) uint8, part_d /
+// part_j (splits, B, N) f32 / int32 scratch (unused, may be null, with one
+// split), min_out (B, N) f32, idx_out (B, N) int64. One launch, a second
+// with more than one split; returns cudaGetLastError() after them.
 extern "C" int vt_nn_min(const float* x, const float* y,
-                         const unsigned char* y_valid, float* min_out,
-                         int* idx_out, int batch, int n, int m, void* stream) {
-  if (batch < 1 || n < 1 || m < 1 || batch > 65535) {
+                         const unsigned char* y_valid, float* part_d,
+                         int* part_j, float* min_out, long long* idx_out,
+                         int batch, int n, int m, int splits, void* stream) {
+  if (batch < 1 || n < 1 || m < 1 || batch > 65535 || splits < 1
+      || splits > 65535 || (splits > 1 && (part_d == nullptr
+                                           || part_j == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((n + kThreads - 1) / kThreads, batch);
-  label_nn_kernel<false><<<grid, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      x, nullptr, y, nullptr, y_valid, min_out, idx_out, n, m);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((n + kNnX - 1) / kNnX, splits, batch);
+  nn_min_kernel<<<grid, kNnWarps * 32, 0, s>>>(
+      x, y, y_valid, part_d, part_j, min_out, idx_out, n, m, splits);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || splits == 1) return err;
+  const long long total = static_cast<long long>(batch) * n;
+  nn_min_merge_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0,
+                        s>>>(part_d, part_j, min_out, idx_out, total, splits);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,8 +9,9 @@ valid. The evaluation chamfer (eval/metrics.py:chamfer_error) is its
 caller: four calls a frame.
 
 `nn_min_sqdist_fwd` is the wrapper: a CUDA tensor launches the
-hand-written kernel csrc/label_nn.cu (entry vt_nn_min, K3's template with
-the label test compiled out) or raises, a CPU tensor runs the plain
+hand-written kernel csrc/label_nn.cu (entry vt_nn_min: 128 x points a
+block, y split over its 8 warps and over `_splits` blocks, merged in
+ascending y order) or raises, a CPU tensor runs the plain
 PyTorch version `nn_min_sqdist_plain`, which spells out the kernel's
 arithmetic operation by operation and is bit-equal to it. Every function
 here reaches the points through the wrapper, once per call on the whole
@@ -24,6 +25,7 @@ takes batched (B, N, 3) points where the JAX function takes (N, 3).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -56,37 +58,71 @@ def nn_min_sqdist_plain(x, y, y_valid, rows: int = _PLAIN_ROWS):
     return masked_min_plain(x, y, y_valid, rows=rows)
 
 
+_X_BLOCK = 128   # x points a block of the kernel
+_MIN_SPLIT = 256  # least y points a split of the kernel takes
+_PER_SM = 3       # blocks an SM the split aims at
+
+
+def _splits(x_blocks: int, m: int, sms: int) -> int:
+    """How many y ranges the kernel splits M points into, for x_blocks
+    blocks of x points on `sms` SMs: the most that keep the grid within
+    three blocks an SM, each range at least 256 points, and at least one
+    (5 at the evaluate shape: 395 blocks on 132 SMs). From the shapes
+    alone: no host sync."""
+    return max(1, min(_PER_SM * sms // x_blocks, m // _MIN_SPLIT))
+
+
+@functools.cache
+def _kernel():
+    """csrc/label_nn.cu's entry vt_nn_min, built and loaded at first use,
+    with its ctypes signature."""
+    from ..utils.cuda_build import load_library
+
+    fn = load_library("label_nn").vt_nn_min
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def nn_min_sqdist_fwd(x, y, y_valid, rows: int = _PLAIN_ROWS):
     """K4 -> (min (B, N) float32, argmin (B, N) int64) for x (B, N, 3), y
     (B, M, 3) float32 and y_valid (B, M) bool. A CUDA tensor launches the
-    hand-written kernel; a CPU tensor runs nn_min_sqdist_plain (blocked
-    by `rows`)."""
+    hand-written kernel (two launches in one call when y is split over
+    blocks); a CPU tensor runs nn_min_sqdist_plain (blocked by `rows`)."""
     if x.device.type == "cpu":
         return nn_min_sqdist_plain(x, y, y_valid, rows)
     if x.device.type != "cuda":
         raise ValueError(f"nn_min_sqdist: unsupported device {x.device}")
     _check(x, y, y_valid)
-    from ..utils.cuda_build import load_library
-
-    fn = load_library("label_nn").vt_nn_min
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     B, N, _ = x.shape
     M = y.shape[1]
     xc, yc = x.detach().contiguous(), y.detach().contiguous()
     valid = y_valid.contiguous().view(torch.uint8)
-    dmin = torch.empty((B, N), dtype=torch.float32, device=x.device)
-    idx = torch.empty((B, N), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = fn(xc.data_ptr(), yc.data_ptr(), valid.data_ptr(),
-                 dmin.data_ptr(), idx.data_ptr(), B, N, M,
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    dev = x.device
+    splits = _splits(B * -(-N // _X_BLOCK), M, _sm_count(dev.index or 0))
+    dmin = torch.empty((B, N), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, N), dtype=torch.int64, device=dev)
+    part_d = part_j = None
+    if splits > 1:  # (splits, B, N) partial minima and indices
+        part = torch.empty((2, splits, B, N), dtype=torch.float32,
+                           device=dev)
+        part_d, part_j = part[0].data_ptr(), part[1].data_ptr()
+    with torch.cuda.device(dev):
+        err = _kernel()(xc.data_ptr(), yc.data_ptr(), valid.data_ptr(),
+                        part_d, part_j, dmin.data_ptr(), idx.data_ptr(), B,
+                        N, M, splits, torch.cuda.current_stream(dev)
+                        .cuda_stream)
     if err != 0:
         raise RuntimeError(f"nn_min_sqdist kernel launch failed: CUDA error "
                            f"{err}")
     nn_min_sqdist_fwd.launches += 1
-    return dmin, idx.long()
+    return dmin, idx
 
 
 nn_min_sqdist_fwd.launches = 0

@@ -13,7 +13,10 @@ tied at it (cnt); a pixel is covered iff m >= 0.
 `max_logit_fwd` is the wrapper: a CUDA tensor launches the hand-written
 kernel csrc/max_logit_fwd.cu (or raises), a CPU tensor runs the plain
 PyTorch version `max_logit_fwd_plain`, which repeats the kernel's
-arithmetic in the same order and is bit-equal to it.
+arithmetic in the same order and is bit-equal to it. The kernel skips
+faces that cannot reach a pixel's max by an exact per-tile bound;
+`max_logit_fwd_walks` returns its skip counts, and
+`max_logit_fwd_walks_plain` is its algorithm in plain PyTorch.
 
 The soft silhouette is sigmoid(m / sigma): the kernel is sigma-free and
 autograd supplies the sigmoid's p (1 - p) / sigma. Its liveness is a
@@ -29,6 +32,7 @@ so the forward's tie count divides the cotangent first.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -270,30 +274,106 @@ def max_logit_fwd_plain(cpl: torch.Tensor, active: torch.Tensor,
     return m, cnt
 
 
-def max_logit_fwd(cpl: torch.Tensor, active: torch.Tensor, size: int):
-    """K1 forward: (B, F', 15) planes + int32 liveness -> (m, cnt), each
-    (B, size, size) float32. A CUDA tensor launches the hand-written
-    kernel; a CPU tensor runs max_logit_fwd_plain."""
-    if cpl.device.type == "cpu":
-        return max_logit_fwd_plain(cpl, active, size)
+_TILE_COLS = 16  # columns of the kernel's warp tile (8 rows x 16)
+_BATCH = 32      # faces the kernel tests at once (one a lane)
+
+
+def max_logit_fwd_walks_plain(cpl: torch.Tensor, active: torch.Tensor,
+                              size: int):
+    """The kernel's own algorithm (csrc/max_logit_fwd.cu) in plain
+    PyTorch, for its skip counts: per (view, strip, x tile) and tile of 8
+    rows x 16 columns, T0 = max over the faces of the live blocks of their
+    least value over the tile's corners; then 32 faces at a time in
+    ascending order, the faces whose greatest corner value reaches
+    max(T0, the tile's least running max) are walked. Every value is the
+    kernel's fma32. Returns (m, cnt, tested, walked): m and cnt must equal
+    max_logit_fwd_plain's, tested and walked count (face, tile) pairs as
+    the kernel's `stats` does."""
+    _check(cpl, active, size)
+    B, Fp, _ = cpl.shape
+    xblk = _xblk(size)
+    n_strips, n_xblk, n_fblk = size // _RBLK, size // xblk, Fp // _FBLK
+    dev = cpl.device
+    col = torch.arange(size, dtype=torch.float32, device=dev)
+    coord = fma32(col, torch.full_like(col, 2.0 / (size - 1)),
+                  torch.full_like(col, -1.0))
+    m = torch.full((B, size, size), -_BIG, dtype=torch.float32, device=dev)
+    cnt = torch.zeros((B, size, size), dtype=torch.float32, device=dev)
+    starts = list(range(0, xblk, _TILE_COLS))
+    lasts = [min(s + _TILE_COLS, xblk) - 1 for s in starts]
+    tile_of = torch.arange(xblk, device=dev) // _TILE_COLS
+    live = active.reshape(B, n_strips, n_xblk, n_fblk).cpu().numpy() != 0
+    tested = walked = 0
+    for b, r, x in zip(*np.nonzero(live.any(3))):
+        blocks = np.nonzero(live[b, r, x])[0]
+        fc = torch.cat([cpl[b, f * _FBLK:(f + 1) * _FBLK] for f in blocks])
+        a, bb, c = fc[:, 0::3], fc[:, 1::3], fc[:, 2::3]       # (F, 5)
+        rows = slice(r * _RBLK, (r + 1) * _RBLK)
+        cols = slice(x * xblk, (x + 1) * xblk)
+        inner = fma32(bb[:, None, :], coord[rows][None, :, None],
+                      c[:, None, :])                          # (F, 8, 5)
+        shape = (fc.shape[0], _RBLK, xblk, _NPL)
+        mins = fma32(a[:, None, None, :].expand(shape),
+                     coord[cols][None, None, :, None].expand(shape),
+                     inner[:, :, None, :].expand(shape)).amin(-1)
+        ih = torch.maximum(inner[:, 0], inner[:, -1])[:, None, :]
+        il = torch.minimum(inner[:, 0], inner[:, -1])[:, None, :]
+        ends = [coord[cols][ix][None, :, None] for ix in (starts, lasts)]
+        aa = a[:, None, :]
+        hi = torch.maximum(*(fma32(aa, p, ih) for p in ends)).amin(-1)
+        t_low = torch.minimum(*(fma32(aa, p, il) for p in ends)) \
+            .amin(-1).amax(0)                                 # (tiles,)
+        run_m = torch.full((_RBLK, xblk), -_BIG, device=dev)
+        run_c = torch.zeros((_RBLK, xblk), device=dev)
+        for f0 in range(0, fc.shape[0], _BATCH):
+            least = torch.stack([run_m[:, s:e + 1].amin()
+                                 for s, e in zip(starts, lasts)])
+            walk = hi[f0:f0 + _BATCH] >= torch.maximum(t_low, least)
+            tested += walk.numel()
+            walked += int(walk.sum())
+            vals = torch.where(walk[:, tile_of][:, None, :],
+                               mins[f0:f0 + _BATCH], -float("inf"))
+            bm = vals.amax(0)
+            bc = (vals == bm).sum(0, dtype=torch.float32)
+            run_c = torch.where(bm > run_m, bc, torch.where(
+                bm == run_m, run_c + bc, run_c))
+            run_m = torch.maximum(run_m, bm)
+        m[b, rows, cols] = run_m
+        cnt[b, rows, cols] = run_c
+    return m, cnt, tested, walked
+
+
+@functools.cache
+def _fwd_kernel():
+    """csrc/max_logit_fwd.cu's entry, built and loaded at first use, with
+    its ctypes signature."""
+    from ..utils.cuda_build import load_library
+
+    fn = load_library("max_logit_fwd").vt_max_logit_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+        + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _fwd_launch(cpl, active, size, stats=None):
     if cpl.device.type != "cuda":
         raise ValueError(f"max_logit_fwd: unsupported device {cpl.device}")
     _check(cpl, active, size)
     if not (cpl.is_contiguous() and active.is_contiguous()):
         raise ValueError("max_logit_fwd needs contiguous inputs")
-    from ..utils.cuda_build import load_library
-
-    fn = load_library("max_logit_fwd").vt_max_logit_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
-        + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if cpl.data_ptr() % 16:
+        raise ValueError("max_logit_fwd needs planes that start on 16 "
+                         "bytes (the kernel stages them as float4)")
     B, Fp, _ = cpl.shape
     m = torch.empty((B, size, size), dtype=torch.float32, device=cpl.device)
     cnt = torch.empty_like(m)
     with torch.cuda.device(cpl.device):
-        err = fn(cpl.data_ptr(), active.data_ptr(), m.data_ptr(),
-                 cnt.data_ptr(), B, Fp, size, _xblk(size), 2.0 / (size - 1),
-                 torch.cuda.current_stream(cpl.device).cuda_stream)
+        err = _fwd_kernel()(
+            cpl.data_ptr(), active.data_ptr(), m.data_ptr(), cnt.data_ptr(),
+            None if stats is None else stats.data_ptr(), B, Fp, size,
+            _xblk(size), 2.0 / (size - 1),
+            torch.cuda.current_stream(cpl.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"max_logit_fwd kernel launch failed: CUDA "
                            f"error {err}")
@@ -301,7 +381,29 @@ def max_logit_fwd(cpl: torch.Tensor, active: torch.Tensor, size: int):
     return m, cnt
 
 
+def max_logit_fwd(cpl: torch.Tensor, active: torch.Tensor, size: int):
+    """K1 forward: (B, F', 15) planes + int32 liveness -> (m, cnt), each
+    (B, size, size) float32. A CUDA tensor launches the hand-written
+    kernel; a CPU tensor runs max_logit_fwd_plain."""
+    if cpl.device.type == "cpu":
+        return max_logit_fwd_plain(cpl, active, size)
+    return _fwd_launch(cpl, active, size)
+
+
 max_logit_fwd.launches = 0
+
+
+def max_logit_fwd_walks(cpl: torch.Tensor, active: torch.Tensor, size: int):
+    """K1 with its skip counts: (m, cnt, tested, walked), the (face, tile)
+    pairs the kernel tested and walked. A CUDA tensor launches the kernel
+    (a counted launch) with its counters; a CPU tensor runs
+    max_logit_fwd_walks_plain, the same algorithm."""
+    if cpl.device.type == "cpu":
+        return max_logit_fwd_walks_plain(cpl, active, size)
+    stats = torch.zeros(2, dtype=torch.int64, device=cpl.device)
+    m, cnt = _fwd_launch(cpl, active, size, stats)
+    tested, walked = stats.tolist()
+    return m, cnt, tested, walked
 
 
 def _check_bwd(cpl, active, m, gw, size):
