@@ -21,7 +21,8 @@ Phases (any failure exits non-zero):
      tolerance of max_logit_bwd_plain, exactly 0 on dead rows and the
      same bits on two runs; also on one view and with every cell dead
      (dc 0); K2's bound over the work these inputs need (its skip test,
-     the pairs it walks) and over all faces of live cells;
+     the pairs it walks) and over all faces of live cells, its time on
+     events and its device time from a CUDA graph;
   4. kernel K3 (csrc/label_nn.cu) at (16, 6890, 3) vs (16, 3000, 3), 14
      labels, both directions: with 30% validity, with all points valid
      (the main path's density) and in the dense worst case (all valid,
@@ -69,7 +70,20 @@ Phases (any failure exits non-zero):
      K4's count, set to 0 before each run, must read 4 per evaluated
      frame after it; every error must be finite, the identity pair's v2v
      0;
- 11. a {"kernels": [...]} line, the nvidia-smi name/power-limit line and,
+ 11. the fixture from disk: the port's generate_fixture_sequence on the
+     card (16 frames of 2048x1536 at raster 512, the 6890-vertex capsule
+     humanoid, seed 0) written as a BEHAVE-layout folder through the
+     port's PNG and JPEG writers; every frame read back through
+     FrameDataReader with PIL blocked (masks bit-equal to the generator's,
+     colour at least 30 dB PSNR); JPEG decode ms a frame; then `track
+     --seq` on that folder at release width (chunk 16, random weights, no
+     reader given: the frames come from disk) and `evaluate` of its pack
+     against the fixture's GT pack (K4 4 launches an evaluated frame,
+     finite errors);
+ 12. `track --synthetic` at the JAX command line's defaults on the card:
+     K1 (hard and soft), K2, K3 and K4 must each launch, counted as on
+     the main path; the summary's v2v values must be finite;
+ 13. a {"kernels": [...]} line, the nvidia-smi name/power-limit line and,
      last, {"ok": true, "device": {...}}.
 Scratch files go to build/chip_smoke/ next to this script. Imports no JAX.
 """
@@ -549,21 +563,27 @@ def check_sil(device, views=16, size=256, sigma=1.0 / 128.0, seed=1):
     # pairs whose test does not skip them; all faces at every pixel of a
     # live cell beside it
     bwd_bytes = 2 * nbytes(cpl) + nbytes(active) + 2 * img
-    bwd = {"ms": cuda_ms(lambda: max_logit_bwd(cpl, active, m_k, gw, size),
-                         20),
+    bwd_fn = functools.partial(max_logit_bwd, cpl, active, m_k, gw, size)
+    bwd_device_ms = graph_ms(bwd_fn, 20)
+    share = "n/a"
+    bwd = {"ms": cuda_ms(bwd_fn, 20),
            "plain_ms": host_ms(lambda: max_logit_bwd_plain(cpl, active, m_k,
                                                            gw, size)),
            **bound(live * _FBLK * _RBLK * K1_OPS_PER_ROW_FACE
                    + walk["triples"] * K2_OPS_PER_CHUNK_TEST
                    + walk["walked_pixel_faces"] * K2_OPS_PER_PIXEL_FACE,
                    bwd_bytes)}
+    if bwd_device_ms > 0:
+        share = f"{bwd['bound_ms'] / bwd_device_ms:.2%}"
     all_faces = bound(live * _FBLK * _RBLK
                       * (_xblk(size) * K2_OPS_PER_PIXEL_FACE
                          + K1_OPS_PER_ROW_FACE), bwd_bytes)
     print(f"K1 soft + K2 at {views} views x {n_faces} faces (padded {Fp}) x "
           f"{size}^2, sigma {sigma:.5f}: live cells {live} of "
           f"{active.numel()}; forward {fwd['ms']:.4f} ms (above); backward "
-          f"{bwd['ms']:.4f} ms (plain {bwd['plain_ms']:.1f} ms, bound "
+          f"{bwd['ms']:.4f} ms on events, {bwd_device_ms:.4f} ms of device "
+          f"time (its bound is {share} of it; "
+          f"plain {bwd['plain_ms']:.1f} ms, bound "
           f"{bwd['bound_ms']:.4f} ms by {bwd['bound_by']} over the work "
           f"these inputs need, all-faces bound {all_faces['bound_ms']:.4f} "
           f"ms), max |diff| {err:.3e} of max |dc| {scale:.3e}, dead rows 0, "
@@ -1365,7 +1385,8 @@ def run_main_path(frames: int, chunk: int, device="cuda", extra=(),
                   mesh=(84, 82)):
     """The whole `track` at release width on the card, `frames` frames in
     chunks of `chunk`; every kernel's count set to 0 just before. Returns
-    (the launch counts, the fabricated sequence, the pack's path)."""
+    (the launch counts, the fabricated sequence, the pack's path, the
+    host "inputs" seconds a frame)."""
     import torch
     from vistracker_tpu_torch.fit import joint as joint_mod
 
@@ -1427,7 +1448,179 @@ def run_main_path(frames: int, chunk: int, device="cuda", extra=(),
           + ", ".join(f"{c} of {a} ({c / a:.4%})" for c, a in pairs))
     for stage, sec in summary["stage_seconds"].items():
         print(f"  {stage}: {sec:.3f} s, peak {peaks[stage]:.2f} GiB")
-    return launches, fab, summary["packed"]
+    return (launches, fab, summary["packed"],
+            summary["stage_seconds"]["inputs"] / frames)
+
+
+def psnr(a, b) -> float:
+    mse = float(np.mean((np.asarray(a, np.float64)
+                         - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def check_launched(label: str, launches: dict, names) -> None:
+    missing = [n for n in names if launches[n] < 1]
+    if missing:
+        raise SystemExit(f"{label}: {missing} not launched ({launches})")
+
+
+def run_fixture_path(frames=16, raster=512, chunk=16,
+                     memory_inputs_s=float("nan")) -> dict:
+    """Phase 11: the fixture written on the card, read back from disk
+    without PIL, tracked from disk and evaluated against its GT pack
+    (memory_inputs_s: the main path's host "inputs" seconds a frame, from
+    frames held in memory, printed beside the disk path's). Returns the
+    launch counts of the `track` and `evaluate` runs."""
+    import torch
+    from vistracker_tpu_torch.cli.main import build_parser, run_evaluate
+    from vistracker_tpu_torch.cli.real_track import run_real_track
+    from vistracker_tpu_torch.data import imageio
+    from vistracker_tpu_torch.data.behave import FrameDataReader
+    from vistracker_tpu_torch.data.fixture import generate_fixture_sequence
+    from vistracker_tpu_torch.data.packed import load_packed
+
+    root = os.path.join(WORK, "fixture")
+    written = {"color": [], "mask": []}
+    enc_jpeg, enc_png = imageio.encode_jpeg, imageio.encode_png
+
+    def keep(kind, enc):
+        def call(arr, *a, **k):
+            written[kind].append(np.array(arr))
+            return enc(arr, *a, **k)
+        return call
+
+    timings = {}
+    t0 = time.perf_counter()
+    with mock.patch.object(imageio, "encode_jpeg", keep("color", enc_jpeg)), \
+            mock.patch.object(imageio, "encode_png", keep("mask", enc_png)):
+        fx = generate_fixture_sequence(root, T=frames, seed=0, raster=raster,
+                                       device="cuda", timings=timings)
+    gen_s = time.perf_counter() - t0
+    print(f"fixture: {frames} frames of 2048x1536 at raster {raster} "
+          f"generated on the card in {gen_s:.3f} s: render "
+          f"{timings['render']:.3f} s, encode {timings['encode']:.3f} s, "
+          f"write {timings['write']:.3f} s; render peak "
+          f"{timings.get('render_peak_gib', 0.0):.2f} GiB")
+
+    saved = sys.modules.get("PIL", "absent")
+    sys.modules["PIL"] = None          # the reader must not need PIL
+    try:
+        reader = FrameDataReader(fx["seq_dir"])
+        t0 = time.perf_counter()
+        got = [(reader.get_color(i, 1), reader.get_mask(i, 1, "person"),
+                reader.get_mask(i, 1, "obj")) for i in range(len(reader))]
+        read_s = time.perf_counter() - t0
+    finally:
+        if saved == "absent":
+            del sys.modules["PIL"]
+        else:
+            sys.modules["PIL"] = saved
+    if len(got) != frames:
+        raise SystemExit(f"fixture: read {len(got)} frames of {frames}")
+    psnrs = []
+    for i, (rgb, pm, om) in enumerate(got):
+        for mine, ref in ((pm, written["mask"][2 * i]),
+                          (om, written["mask"][2 * i + 1])):
+            if not np.array_equal(mine, ref > 127):
+                raise SystemExit(f"fixture frame {i}: a mask read from disk "
+                                 "differs from the generator's")
+        psnrs.append(psnr(rgb, written["color"][i]))
+    if min(psnrs) < 30.0:
+        raise SystemExit(f"fixture: colour PSNR {min(psnrs):.2f} dB < 30")
+    with open(os.path.join(fx["seq_dir"], reader.frames[0], "k1.color.jpg"),
+              "rb") as f:
+        frame_jpeg = f.read()
+    noise_jpeg = imageio.encode_jpeg(np.random.RandomState(11).randint(
+        0, 256, (1536, 2048, 3), dtype=np.uint8))
+    dec = {}
+    for label, data in (("fixture frame", frame_jpeg),
+                        ("2048x1536 noise", noise_jpeg)):
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            imageio.decode_jpeg(data)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        dec[label] = float(np.median(ts))
+    print(f"fixture read back without PIL: {frames} frames (colour + 2 masks)"
+          f" in {read_s:.3f} s; masks bit-equal to the generator's; colour "
+          f"PSNR {min(psnrs):.2f}..{max(psnrs):.2f} dB; JPEG decode "
+          + ", ".join(f"{k} ({len(d)} bytes) {dec[k]:.2f} ms" for k, d in
+                      (("fixture frame", frame_jpeg),
+                       ("2048x1536 noise", noise_jpeg))))
+
+    counters = LaunchCounts()
+    out = os.path.join(root, "out")
+    with wide_threshold(), occlude_few_infiller():
+        counters.write(dict.fromkeys(counters.read(), 0))
+        summary = run_real_track(build_parser().parse_args([
+            "track", "--seq", fx["seq_dir"], "--out", out,
+            "--smpl-model", fx["model_pkl"], "--assets", fx["assets_root"],
+            "--objects-root", fx["objects_root"], "--sifnet-ckpt", "random",
+            "--infiller-ckpt", "random", "--smoothnet-smpl-ckpt", "random",
+            "--smoothnet-objrot-ckpt", "random", "--chunk-size", str(chunk),
+            "--redo"]))
+        launches = counters.read()
+    check_outputs(load_packed(summary["packed"]), frames)
+    check_launched("fixture track", launches, ("max_logit_fwd",
+                                               "max_logit_fwd_soft",
+                                               "max_logit_bwd", "label_nn"))
+    peaks = summary.get("stage_peak_gib", {})
+    print(f"fixture track from disk: {frames} frames in chunks of {chunk} in "
+          f"{summary['seconds']:.2f} s ({summary['fps']:.3f} frames/s); "
+          f"inputs {summary['stage_seconds']['inputs'] / frames:.4f} s a "
+          f"frame from disk ({memory_inputs_s:.4f} from memory on the main "
+          f"path); launches {json.dumps(launches)}")
+    for stage, sec in summary["stage_seconds"].items():
+        print(f"  {stage}: {sec:.3f} s, peak {peaks.get(stage, 0.0):.2f} GiB")
+
+    from vistracker_tpu_torch.ops import chamfer
+    chamfer.nn_min_sqdist_fwd.launches = 0
+    t0 = time.perf_counter()
+    outfile = run_evaluate(build_parser().parse_args([
+        "evaluate", "--recon", summary["packed"], "--gt", fx["gt_pack"],
+        "--template", os.path.join(fx["objects_root"], "boxmedium",
+                                   "boxmedium.ply"),
+        "--smpl-model", fx["model_pkl"], "--angles",
+        "--out", os.path.join(root, "results")]))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    with open(outfile) as f:
+        res = json.load(f)
+    n, k4 = res["total"], chamfer.nn_min_sqdist_fwd.launches
+    if k4 != 4 * n or n != frames:
+        raise SystemExit(f"fixture evaluate: K4 launched {k4} times for {n} "
+                         f"frames (want 4 a frame, {frames} frames)")
+    keys = ("smpl_v2v", "obj_v2v", "smpl_chamf", "obj_chamf")
+    if not np.isfinite([res[k]["mean"] for k in keys]).all():
+        raise SystemExit(f"fixture evaluate: non-finite errors {res}")
+    print(f"fixture evaluate against its GT pack: {n} frames in {sec:.3f} s; "
+          f"K4 launches {k4}; means "
+          + json.dumps({k: res[k]["mean"] for k in (*keys, "rot_error")
+                        if k in res}))
+    launches["nn_min_sqdist"] = k4
+    return launches
+
+
+def run_synthetic_path() -> dict:
+    """Phase 12: `track --synthetic` at the JAX command line's defaults on
+    the card; returns its launch counts."""
+    from vistracker_tpu_torch.cli.main import build_parser, run_synthetic_track
+
+    counters = LaunchCounts()
+    counters.write(dict.fromkeys(counters.read(), 0))
+    t0 = time.perf_counter()
+    res = run_synthetic_track(build_parser().parse_args(
+        ["track", "--synthetic", "--out", os.path.join(WORK, "synthetic")]))
+    sec = time.perf_counter() - t0
+    launches = counters.read()
+    check_launched("track --synthetic", launches, launches)
+    if not np.isfinite([res["smpl_v2v_cm"], res["obj_v2v_cm"]]).all():
+        raise SystemExit(f"track --synthetic: non-finite v2v {res}")
+    print(f"track --synthetic (8 frames, the JAX defaults): {sec:.3f} s; "
+          f"smpl v2v {res['smpl_v2v_cm']:.4f} cm, obj v2v "
+          f"{res['obj_v2v_cm']:.4f} cm; launches {json.dumps(launches)}; "
+          f"stage seconds {json.dumps(res['timings'])}")
+    return launches
 
 
 def main():
@@ -1475,10 +1668,13 @@ def main():
     check_infiller()
     check_eval_card_vs_cpu()
 
-    launches, fab, track_pack = run_main_path(opts.frames[0], opts.chunk)
+    launches, fab, track_pack, inputs_s = run_main_path(opts.frames[0],
+                                                        opts.chunk)
     for frames in opts.frames[1:]:
         run_main_path(frames, frames)
     launches["nn_min_sqdist"] = run_evaluate_path(fab, track_pack)
+    run_fixture_path(memory_inputs_s=inputs_s)
+    run_synthetic_path()
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if rec["launches"] < 1:

@@ -130,3 +130,23 @@ def test_check_k4_on_the_cpu(no_card, capsys):
     out = capsys.readouterr().out
     assert "copies" in out and "5 y points" in out
     assert "K4 splits of y" in out
+
+
+def test_synthetic_phase_on_the_cpu(capsys):
+    """chip_smoke's `track --synthetic` phase with the device pinned to the
+    CPU: the run, its v2v checks and its print; the CPU path launches no
+    kernel, so the launch check is handed the counts and must see every
+    kernel's name."""
+    import vistracker_tpu_torch.cli.real_track as rt
+    seen = {}
+    with mock.patch.object(rt, "resolve_device",
+                           lambda name: torch.device("cpu")), \
+            mock.patch.object(chip_smoke, "check_launched",
+                              lambda label, launches, names:
+                              seen.update(launches)):
+        launches = chip_smoke.run_synthetic_path()
+    assert set(seen) == set(launches) == {
+        "max_logit_fwd", "max_logit_fwd_soft", "max_logit_bwd", "label_nn",
+        "nn_min_sqdist"}
+    assert "track --synthetic (8 frames, the JAX defaults)" \
+        in capsys.readouterr().out

@@ -279,7 +279,11 @@ def test_import_leaves_jax_out():
             " vistracker_tpu_torch.ops.chamfer,"
             " vistracker_tpu_torch.eval.metrics,"
             " vistracker_tpu_torch.eval.evaluator,"
-            " vistracker_tpu_torch.data.packed, chip_smoke;"
+            " vistracker_tpu_torch.data.packed,"
+            " vistracker_tpu_torch.data.imageio,"
+            " vistracker_tpu_torch.data.fixture,"
+            " vistracker_tpu_torch.render.viz,"
+            " vistracker_tpu_torch.cli.synthetic, chip_smoke;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'flax', 'optax', 'vistracker_tpu', 'PIL', 'joblib')];"
             " print(bad); sys.exit(1 if bad else 0)")
@@ -328,9 +332,10 @@ def test_orbax_dir_refused(tmp_path, flag):
 
 
 def test_cli_flags_match_the_jax_track():
-    """Every flag of the port's `track` exists in the JAX package's with
-    the same default (--device is the port's own; --sil-backend and
-    --synthetic are not carried over)."""
+    """The port's `track` has the JAX package's flags with the same
+    defaults, `--synthetic` and its sizes included. The differences:
+    --device is the port's own, standing in for the JAX --cpu, and
+    --sil-backend is not carried over (one silhouette path here)."""
     from vistracker_tpu.cli.main import build_parser as jax_parser
     from vistracker_tpu_torch.cli.main import build_parser
 
@@ -341,10 +346,12 @@ def test_cli_flags_match_the_jax_track():
 
     port, ref = track_defaults(build_parser()), track_defaults(jax_parser())
     assert set(port) - set(ref) == {"device"}
+    assert set(ref) - set(port) == {"cpu", "sil_backend"}
     for k, v in port.items():
         if k != "device":
             assert ref[k] == v, k
-    for k in ("objects_root", "infiller_ckpt", "smoothnet_smpl_ckpt",
+    for k in ("synthetic", "frames", "verts", "image_size", "eval_window",
+              "render", "objects_root", "infiller_ckpt", "smoothnet_smpl_ckpt",
               "smoothnet_objrot_ckpt", "early_stop", "ocent",
               "smpl_query_points", "segment_iters", "collision", "sdf_res"):
         assert k in port

@@ -61,6 +61,10 @@ def check_supported(args):
     will bring it."""
     from ..models.weights import is_torch_experiment_dir
 
+    for need, name in ((args.smpl_model, "--smpl-model"),
+                       (args.sifnet_ckpt, "--sifnet-ckpt")):
+        if not need:
+            raise SystemExit(f"track --seq requires {name}")
     if args.shard_frames:
         raise SystemExit("--shard-frames (multi-device frame sharding) is "
                          + _NOT_PORTED.format("6 (multi-device)"))

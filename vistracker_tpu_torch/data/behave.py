@@ -2,8 +2,9 @@
 
 A sequence folder holds info.json and per-frame folders tXXXX.XXX with
 k{kid}.color.jpg, person/object masks, k{kid}.color.json (OpenPose) and
-k{kid}.mocap.json (FrankMocap). PIL is imported only when an image is
-read. `MemoryFrameReader` serves the same interface from arrays held in
+k{kid}.mocap.json (FrankMocap). Images are read through data/imageio.py
+(PNG in numpy, JPEG in host C++), which decodes what PIL decodes without
+PIL. `MemoryFrameReader` serves the same interface from arrays held in
 memory, for callers that have frames but no files.
 """
 from __future__ import annotations
@@ -13,6 +14,8 @@ import os.path as osp
 from glob import glob
 
 import numpy as np
+
+from .imageio import read_l, read_rgb
 
 
 class SeqInfo:
@@ -71,14 +74,11 @@ class FrameDataReader:
         raise FileNotFoundError(f"no {cat} mask in {folder}")
 
     def get_mask(self, idx: int, kid: int, cat: str = "person") -> np.ndarray:
-        from PIL import Image
-        img = Image.open(self.get_mask_file(idx, kid, cat)).convert("L")
-        return np.asarray(img) > 127
+        return read_l(self.get_mask_file(idx, kid, cat)) > 127
 
     def get_color(self, idx: int, kid: int) -> np.ndarray:
-        from PIL import Image
-        path = osp.join(self.get_frame_folder(idx), f"k{kid}.color.jpg")
-        return np.asarray(Image.open(path).convert("RGB"))
+        return read_rgb(osp.join(self.get_frame_folder(idx),
+                                 f"k{kid}.color.jpg"))
 
     def get_body_kpts(self, idx: int, kid: int, tol: float = 0.5):
         """OpenPose body25 keypoints (25, 3); low-confidence rows zeroed."""

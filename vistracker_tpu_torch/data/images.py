@@ -7,6 +7,10 @@ union + person mask + object mask), channels-last. The JAX package
 resizes with PIL BILINEAR, which antialiases when it shrinks; here the
 resize is F.interpolate(bilinear, antialias=True), which follows PIL's
 filter, so no PIL is needed.
+
+`resize_uint8_bilinear` and `resize_uint8_nearest` are PIL's
+`Image.resize((W, H), BILINEAR | NEAREST)` on uint8 images, bit for bit:
+the fixture (data/fixture.py) upsamples its renders with them.
 """
 from __future__ import annotations
 
@@ -44,6 +48,81 @@ def resize_bilinear(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     y = F.interpolate(x, size=(size[1], size[0]), mode="bilinear",
                       align_corners=False, antialias=True)[0]
     return (y[0] if img.ndim == 2 else y.permute(1, 2, 0)).numpy()
+
+
+_PIL_PRECISION_BITS = 32 - 8 - 2
+
+
+def _pil_bilinear_coeffs(in_size: int, out_size: int):
+    """PIL's precompute_coeffs + normalize_coeffs_8bpc for the bilinear
+    filter: per output sample its first input index, tap count and
+    fixed-point weights (PRECISION_BITS = 22)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    xmins = np.zeros(out_size, np.int64)
+    kk = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = [max(0.0, 1.0 - abs((x + xmin - center + 0.5) / filterscale))
+             for x in range(xmax)]
+        ww = sum(w)
+        w = [v / ww if ww != 0.0 else v for v in w]
+        for x, v in enumerate(w):
+            kk[xx, x] = int((-0.5 if v < 0 else 0.5)
+                            + v * (1 << _PIL_PRECISION_BITS))
+        xmins[xx] = xmin
+    return xmins, kk
+
+
+def _pil_pass(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+    """One separable pass of PIL's 8-bit resample along `axis`. The
+    bilinear weights are non-negative and sum to ~2^22, so the sums stay
+    below 255 * 2^22 + 2^21 < 2^31: int32 holds them."""
+    xmins, kk = _pil_bilinear_coeffs(img.shape[axis], out_size)
+    kk = kk.astype(np.int32)
+    src = np.moveaxis(img, axis, 0).astype(np.int32)
+    acc = np.full((out_size,) + src.shape[1:], 1 << (_PIL_PRECISION_BITS - 1),
+                  np.int32)
+    idx = np.minimum(xmins[:, None] + np.arange(kk.shape[1]),
+                     img.shape[axis] - 1)
+    wshape = (out_size,) + (1,) * (src.ndim - 1)
+    for k in range(kk.shape[1]):
+        acc += src[idx[:, k]] * kk[:, k].reshape(wshape)
+    out = np.clip(acc >> _PIL_PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_uint8_bilinear(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """PIL's Image.resize((width, height), BILINEAR) of an (H, W) or
+    (H, W, C) uint8 image: a horizontal then a vertical pass, each with
+    fixed-point weights and a uint8 image between them."""
+    w, h = size
+    out = img
+    if w != img.shape[1]:
+        out = _pil_pass(out, 1, w)
+    if h != img.shape[0]:
+        out = _pil_pass(out, 0, h)
+    return np.ascontiguousarray(out)
+
+
+def _pil_nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """PIL's ImagingScaleAffine source index: x0 = scale / 2, then scale is
+    added once per output sample (float64), truncated."""
+    a = in_size / out_size
+    pos = np.cumsum(np.r_[a * 0.5, np.full(out_size - 1, a)])
+    return np.minimum(pos.astype(np.int64), in_size - 1)
+
+
+def resize_uint8_nearest(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """PIL's Image.resize((width, height), NEAREST) of a uint8 image."""
+    w, h = size
+    rows = _pil_nearest_index(img.shape[0], h)
+    cols = _pil_nearest_index(img.shape[1], w)
+    return np.ascontiguousarray(img[rows][:, cols])
 
 
 def masks_to_bbox(masks) -> tuple[np.ndarray, np.ndarray]:

@@ -11,6 +11,12 @@ The library lands in build/kernels/ at the root of the checkout; its name
 carries a hash of the source, the shared headers (csrc/*.cuh) and the
 flags, so an edited source is rebuilt. `build_all` starts one nvcc per
 source at once.
+
+Host code (csrc/<name>.cpp, e.g. the JPEG codec of data/imageio.py) is
+built the same way with g++ by `load_host_library`:
+
+    g++ -O3 -shared -fPIC -std=c++17 -o build/kernels/lib<name>_<hash>.so \
+        csrc/<name>.cpp
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -85,3 +92,26 @@ def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu as a ctypes library."""
     build(name)
     return ctypes.CDLL(str(_lib_path(name)))
+
+
+@functools.cache
+def load_host_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load the host C++ source csrc/<name>.cpp with
+    g++ as a ctypes library."""
+    src = (CSRC / f"{name}.cpp").read_bytes()
+    digest = hashlib.sha256(src + " ".join(GXX_FLAGS).encode()).hexdigest()
+    out = BUILD_DIR / f"lib{name}_{digest[:12]}.so"
+    if not out.is_file():
+        cxx = shutil.which("g++")
+        if not cxx:
+            raise RuntimeError(f"no C++ compiler (g++) to build csrc/{name}.cpp")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        res = subprocess.run([cxx, *GXX_FLAGS, "-o", str(tmp),
+                              str(CSRC / f"{name}.cpp")],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"g++ failed for csrc/{name}.cpp:\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))
