@@ -83,7 +83,33 @@ Phases (any failure exits non-zero):
  12. `track --synthetic` at the JAX command line's defaults on the card:
      K1 (hard and soft), K2, K3 and K4 must each launch, counted as on
      the main path; the summary's v2v values must be finite;
- 13. a {"kernels": [...]} line, the nvidia-smi name/power-limit line and,
+ 13. training, T1: the release SIF-Net's training step at its training
+     shapes (chore-triplane-vis, B = 8, 20,000 query points, 512^2, a
+     seeded batch), 2 warm-up and 5 timed steps with remat on, then off
+     (at B = 8 if it fits, else at the largest B that the peaks of one
+     step at B = 1 and 2 say fits; no out-of-memory error is caught):
+     median seconds a step, examples/s, query points/s, peak GiB; the
+     loss finite and falling over the first 5 steps, every parameter's
+     gradient of the first step finite and not all zero;
+ 14. training, T2: the tiny SIF-Net trained 3 steps across a
+     learning-rate milestone on the card and on the CPU from the same
+     weights and batch: loss and terms within 1e-4 relative at every
+     step, parameters within 1e-5 with at most 0.1% of elements
+     outside after the first update and 15% after the third, none
+     farther than 5 lr;
+ 15. training, T3, the command lines on the fixture of phase 11:
+     `boundary-sample --samples 20000 --flip` (seconds a frame),
+     `train-sifnet --offline-data` (chore, 512^2, 20,000 points, B = 4,
+     1 epoch), `train-sifnet --synthetic` (K1 hard counted from 0, must
+     launch; that launch's m and cnt bit-equal to the plain version on
+     its own planes and liveness), `track --neural-only --net-preset
+     tiny` with that
+     checkpoint (the weights it loads equal the checkpoint's, outputs
+     finite), `train-smoothnet` and `train-infiller --synthetic` at
+     their defaults (steps/s, a validation loss that falls; K4 counted
+     from 0: 6 launches; both directions of the first downstream
+     chamfer's K4 bit-equal to the plain version on its inputs);
+ 16. a {"kernels": [...]} line, the nvidia-smi name/power-limit line and,
      last, {"ok": true, "device": {...}}.
 Scratch files go to build/chip_smoke/ next to this script. Imports no JAX.
 """
@@ -94,6 +120,7 @@ import functools
 import json
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import time
@@ -1465,12 +1492,13 @@ def check_launched(label: str, launches: dict, names) -> None:
 
 
 def run_fixture_path(frames=16, raster=512, chunk=16,
-                     memory_inputs_s=float("nan")) -> dict:
+                     memory_inputs_s=float("nan")):
     """Phase 11: the fixture written on the card, read back from disk
     without PIL, tracked from disk and evaluated against its GT pack
     (memory_inputs_s: the main path's host "inputs" seconds a frame, from
     frames held in memory, printed beside the disk path's). Returns the
-    launch counts of the `track` and `evaluate` runs."""
+    launch counts of the `track` and `evaluate` runs and the fixture's
+    paths (generate_fixture_sequence's dict)."""
     import torch
     from vistracker_tpu_torch.cli.main import build_parser, run_evaluate
     from vistracker_tpu_torch.cli.real_track import run_real_track
@@ -1598,7 +1626,7 @@ def run_fixture_path(frames=16, raster=512, chunk=16,
           + json.dumps({k: res[k]["mean"] for k in (*keys, "rot_error")
                         if k in res}))
     launches["nn_min_sqdist"] = k4
-    return launches
+    return launches, fx
 
 
 def run_synthetic_path() -> dict:
@@ -1621,6 +1649,418 @@ def run_synthetic_path() -> dict:
           f"{res['obj_v2v_cm']:.4f} cm; launches {json.dumps(launches)}; "
           f"stage seconds {json.dumps(res['timings'])}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 13-15: training
+# ---------------------------------------------------------------------------
+
+def sifnet_batch(device, B: int, N: int, S: int, crop: int = 1200, seed=0):
+    """A seeded SIF-Net training batch at the reference's shapes: images
+    (B, S, S, 8), N query points around each body center (most inside the
+    crop), GT distances, parts, PCA axes, object centers and
+    visibilities."""
+    import torch
+    from vistracker_tpu_torch.core.camera import PerspectiveCamera
+    rng = np.random.RandomState(seed)
+    bc = (np.float32([0.0, 0.0, 2.2])
+          + rng.randn(B, 3).astype(np.float32) * 0.05)
+    cc = PerspectiveCamera(crop_size=crop).project_screen(
+        torch.as_tensor(bc)[:, None])[:, 0].numpy()
+    batch = dict(
+        images=rng.rand(B, S, S, 8).astype(np.float32),
+        points=(bc[:, None] + rng.randn(B, N, 3) * 0.15).astype(np.float32),
+        crop_center=cc.astype(np.float32), body_center=bc,
+        df_h=(rng.rand(B, N) * 0.15).astype(np.float32),
+        df_o=(rng.rand(B, N) * 0.15).astype(np.float32),
+        parts=rng.randint(0, 14, (B, N)).astype(np.int64),
+        pca=rng.randn(B, N, 3, 3).astype(np.float32),
+        obj_center=rng.randn(B, 3).astype(np.float32),
+        visibility=rng.rand(B, N).astype(np.float32))
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def sifnet_steps(cfg, batch, device, warmup: int, timed: int,
+                 tcfg=None, seed=0, after_first=None):
+    """Seeded SIF-Net (`cfg`) trained on one batch: `warmup` + `timed`
+    steps on `device`, each synchronized; after_first(state) is called
+    after the first step, whose gradients the parameters still hold.
+    Returns (losses, terms per step, timed seconds, peak GiB, the train
+    state)."""
+    import torch
+    from vistracker_tpu_torch.core.camera import PerspectiveCamera
+    from vistracker_tpu_torch.fit.train import (TrainConfig,
+                                                init_train_state,
+                                                make_train_step)
+    from vistracker_tpu_torch.models.sifnet import SIFNet
+    from vistracker_tpu_torch.models.weights import init_random_
+
+    tcfg = tcfg or TrainConfig()
+    model = init_random_(SIFNet(cfg, PerspectiveCamera(crop_size=cfg.crop_size)),
+                         torch.Generator().manual_seed(seed)).to(device)
+    state = init_train_state(model, tcfg)
+    step = make_train_step(model, tcfg)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, terms, secs = [], [], []
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        state, loss, tt = step(state, batch)
+        if cuda:
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        terms.append({k: float(v) for k, v in tt.items()})
+        if i == 0 and after_first is not None:
+            after_first(state)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    return losses, terms, secs[warmup:], peak, state
+
+
+def check_gradients(state, label: str):
+    """Every parameter's gradient finite and not all zero. Read at the
+    first step: later, Adam may have pushed every df prediction above the
+    loss's clamp (0.1), where the df head gets no gradient at all."""
+    bad = [n for n, p in state.model.named_parameters()
+           if p.grad is None or not bool(p.grad.isfinite().all())
+           or float(p.grad.abs().max()) == 0.0]
+    if bad:
+        raise SystemExit(f"{label}: zero, missing or non-finite gradients "
+                         f"for {bad}")
+
+
+def check_training_release(B=8, N=20000, S=512, device="cuda",
+                           preset="release"):
+    """Phase 13 (T1): the release SIF-Net's training step at its training
+    shapes (chore-triplane-vis, B x N query points, S^2 images), 2 warm-up
+    and 5 timed steps with remat on, then off (the loss must fall over
+    the first 5 steps); returns the results."""
+    import torch
+    from vistracker_tpu_torch.models.sifnet import sifnet_preset
+
+    results = {}
+    cuda = device == "cuda"
+    total = (torch.cuda.get_device_properties(0).total_memory / 2**30
+             if cuda else 0.0)
+    if cuda:
+        torch.cuda.empty_cache()
+    for remat in (True, False):
+        cfg = sifnet_preset(preset, remat=remat)
+        b = B
+        if not remat and cuda:
+            # the largest B up to 8 that fits, from the peaks of one step
+            # at B = 1 and 2 (no out-of-memory error is caught)
+            p = [sifnet_steps(cfg, sifnet_batch(device, n, N, S), device,
+                              1, 0)[3] for n in (1, 2)]
+            slope = p[1] - p[0]
+            b = min(B, int((0.92 * total - (p[0] - slope)) / slope))
+            print(f"T1 remat off: peak {p[0]:.2f} GiB at B=1, {p[1]:.2f} at "
+                  f"B=2 ({slope:.2f} GiB an example): B={b} "
+                  f"{'(8 fits)' if b == B else '(the largest that fits)'}")
+            if b < 1:
+                raise SystemExit("T1: no batch fits without remat")
+        if cuda:
+            torch.cuda.empty_cache()
+        batch = sifnet_batch(device, b, N, S)
+        losses, _, secs, peak, state = sifnet_steps(
+            cfg, batch, device, 2, 5, after_first=functools.partial(
+                check_gradients, label=f"T1 remat={remat}"))
+        if not np.isfinite(losses).all():
+            raise SystemExit(f"T1 remat={remat}: non-finite loss {losses}")
+        # a seeded random batch: the loss falls to its floor within a few
+        # steps and then moves at the step size, so its fall is read over
+        # the first 5 steps
+        if not losses[4] < losses[0]:
+            raise SystemExit(f"T1 remat={remat}: the loss did not fall over "
+                             f"5 steps: {losses}")
+        med = float(np.median(secs))
+        results["remat" if remat else "no_remat"] = dict(
+            B=b, seconds_a_step=med, examples_s=b / med,
+            points_s=b * N / med, peak_gib=peak, losses=losses)
+        print(f"T1 {preset} SIF-Net step, remat {'on' if remat else 'off'}, "
+              f"B={b}, N={N}, {S}^2: median {med:.4f} s a step "
+              f"(steps {', '.join(f'{x:.4f}' for x in secs)}), "
+              f"{b / med:.3f} examples/s, {b * N / med:.0f} query points/s,"
+              f" peak {peak:.2f} GiB of {total:.2f}; losses "
+              + ", ".join(f"{x:.4f}" for x in losses))
+        del state, batch
+        if cuda:
+            torch.cuda.empty_cache()
+    return results
+
+
+def _outside(sd_a: dict, sd_b: dict, atol: float):
+    """(elements of sd_a farther than atol from sd_b, elements, max |d|)."""
+    diffs = [(sd_a[k].cpu() - v.cpu()).abs() for k, v in sd_b.items()]
+    return (sum(int((d > atol).sum()) for d in diffs),
+            sum(d.numel() for d in diffs), max(float(d.max()) for d in diffs))
+
+
+def check_training_card_vs_cpu(steps=3, B=2, N=2000, S=64, card="cuda"):
+    """Phase 14 (T2): the tiny SIF-Net trained 3 steps (across a
+    learning-rate milestone) on the card and on the CPU from the same
+    weights and batch: loss and terms within 1e-4 relative at every step;
+    the parameters after the first update within 1e-5 with at most 0.1%
+    of elements outside. Adam's first update moves every parameter by
+    +-lr, so the elements outside are those whose gradient the two
+    devices round to other signs; they perturb every later gradient, so
+    after 3 updates at most 15% of the elements may lie outside 1e-5
+    (6.95% and 7.94% measured on an H100) and none farther than 5 lr
+    (Adam moves an element by about lr an update at most: 2.3 lr over
+    the three, in either run)."""
+    import torch
+    from vistracker_tpu_torch.fit.train import TrainConfig
+    from vistracker_tpu_torch.models.sifnet import sifnet_preset
+
+    cfg = sifnet_preset("tiny")
+    tcfg = TrainConfig(milestones=(1,), steps_per_epoch=2)
+    runs, first = {}, {}
+
+    def keep(key, state):
+        first[key] = {k: v.detach().clone()
+                      for k, v in state.model.state_dict().items()}
+
+    for key, dev in (("cuda", card), ("cpu", "cpu")):
+        runs[key] = sifnet_steps(cfg, sifnet_batch(dev, B, N, S, seed=1),
+                                 dev, 0, steps, tcfg,
+                                 after_first=functools.partial(keep, key))
+    worst = 0.0
+    for i in range(steps):
+        pairs = [(runs["cuda"][0][i], runs["cpu"][0][i], "loss")]
+        pairs += [(runs["cuda"][1][i][k], v, k)
+                  for k, v in runs["cpu"][1][i].items()]
+        for a, b, k in pairs:
+            rel = abs(a - b) / max(abs(b), 1e-30)
+            worst = max(worst, rel)
+            if rel > 1e-4:
+                raise SystemExit(f"T2 step {i}: {k} card {a} vs cpu {b}")
+    out1, total, max1 = _outside(first["cuda"], first["cpu"], 1e-5)
+    if out1 > 0.001 * total:
+        raise SystemExit(f"T2: {out1} of {total} parameters differ by more "
+                         "than 1e-5 after the first update")
+    out3, _, max3 = _outside(runs["cuda"][4].model.state_dict(),
+                             runs["cpu"][4].model.state_dict(), 1e-5)
+    if out3 > 0.15 * total or not max3 <= 5 * tcfg.learning_rate:
+        raise SystemExit(f"T2: {out3} of {total} parameters differ by more "
+                         f"than 1e-5 after {steps} updates, max |d| {max3}")
+    print(f"T2 tiny SIF-Net card vs CPU, {steps} steps: loss and terms "
+          f"within {worst:.2e} relative; parameters outside 1e-5: {out1} "
+          f"of {total} after the first update (max |d| {max1:.2e}), "
+          f"{out3} after {steps} (max |d| {max3:.2e})")
+
+
+def _metrics(out: str) -> list:
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _val_falls(label: str, out: str):
+    vals = [r["val_loss"] for r in _metrics(out) if "val_loss" in r]
+    if not (np.isfinite(vals).all() and len(vals) >= 2
+            and vals[-1] < vals[0]):
+        raise SystemExit(f"{label}: the validation loss did not fall: "
+                         f"{vals}")
+    return vals
+
+
+def _detached(x):
+    """Tensors in x (nested tuples, lists, dicts) detached and cloned."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_detached(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _detached(v) for k, v in x.items()}
+    return x
+
+
+def first_call(module, name: str, keep: list):
+    """A patch of module.name that passes every call on and keeps the
+    first one's (args, kwargs, result), detached, in `keep`."""
+    fn = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        if not keep:
+            keep.append(_detached((args, kwargs, out)))
+        return out
+
+    return mock.patch.object(module, name, spy)
+
+
+def k1_train_call(call) -> str:
+    """K1 hard as train-sifnet --synthetic's triplane render launched it:
+    the m and cnt of that launch bit-equal to max_logit_fwd_plain on the
+    same planes and liveness."""
+    import torch
+    from vistracker_tpu_torch.ops.coverage import max_logit_fwd_plain
+
+    (cpl, active, size, *_), _, (m_k, c_k) = call
+    m_p, c_p = max_logit_fwd_plain(cpl, active, size)
+    if not (torch.equal(m_k, m_p) and torch.equal(c_k, c_p)):
+        raise SystemExit(
+            f"K1 at train-sifnet --synthetic's shape: kernel != plain "
+            f"version at {int((m_k != m_p).sum()) + int((c_k != c_p).sum())}"
+            " values")
+    return (f"{cpl.shape[0]} views x {cpl.shape[1]} faces (padded) x "
+            f"{size}^2, m and cnt bit-equal to the plain version")
+
+
+def k4_downstream_call(call) -> str:
+    """K4 at train-infiller's downstream chamfer: both directions of its
+    first chamfer_distance call (min and argmin) bit-equal to
+    nn_min_sqdist_plain."""
+    import torch
+    from vistracker_tpu_torch.ops.chamfer import (_valid, nn_min_sqdist_fwd,
+                                                  nn_min_sqdist_plain)
+
+    (s1, s2), kwargs, _ = call
+    for x, y, mask in ((s1, s2, kwargs.get("mask2")),
+                       (s2, s1, kwargs.get("mask1"))):
+        valid = _valid(mask, y)
+        d_k, i_k = nn_min_sqdist_fwd(x, y, valid)
+        d_p, i_p = nn_min_sqdist_plain(x, y, valid)
+        if not (torch.equal(d_k, d_p) and torch.equal(i_k, i_p)):
+            raise SystemExit(
+                f"K4 at train-infiller's downstream shape: kernel != plain "
+                f"version at {int((d_k != d_p).sum())} distances, "
+                f"{int((i_k != i_p).sum())} indices")
+    return (f"{s1.shape[0]} x {s1.shape[1]} vs {s2.shape[1]} points, both "
+            "directions, min and argmin bit-equal to the plain version")
+
+
+def run_training_cli(fx: dict, samples=20000, size=512, batch=4,
+                     track_extra=()):
+    """Phase 15 (T3): the training command lines on the fixture's folder
+    and GT pack (boundary-sample at `samples` points, train-sifnet
+    --offline-data at size^2 and B = `batch`), then a trained checkpoint
+    loaded by `track` (with `track_extra` flags), then the SmoothNet and
+    HVOP-Net trainers. The first K1 launch of train-sifnet --synthetic
+    and the first downstream chamfer of train-infiller are held against
+    their plain versions on the inputs those runs gave them."""
+    import contextlib
+
+    import torch
+    from vistracker_tpu_torch.cli import main as cli
+    from vistracker_tpu_torch.cli import real_track as rt
+    from vistracker_tpu_torch.data.packed import load_packed
+    from vistracker_tpu_torch.models.weights import find_checkpoint
+    from vistracker_tpu_torch.ops import chamfer, coverage
+
+    root = os.path.join(WORK, "training")
+    shutil.rmtree(root, ignore_errors=True)  # a trainer would resume
+    parse = cli.build_parser().parse_args
+    frames = len(load_packed(fx["gt_pack"])["poses"])
+
+    npz = os.path.join(root, "boundary")
+    t0 = time.perf_counter()
+    res = cli.run_boundary_sample(parse([
+        "boundary-sample", "--seq", fx["seq_dir"], "--gt-pack", fx["gt_pack"],
+        "--smpl-model", fx["model_pkl"], "--assets", fx["assets_root"],
+        "--objects-root", fx["objects_root"], "--out", npz,
+        "--samples", str(samples), "--flip", "--redo"]))
+    sec = time.perf_counter() - t0
+    if res["written"] != frames or len(os.listdir(npz)) != 2 * frames:
+        raise SystemExit(f"boundary-sample: wrote {res}, "
+                         f"{len(os.listdir(npz))} files")
+    print(f"T3 boundary-sample --samples {samples} --flip: {frames} frames in "
+          f"{sec:.3f} s, {sec / frames:.4f} s a frame (two npz each)")
+
+    out = os.path.join(root, "sifnet_offline")
+    t0 = time.perf_counter()
+    res = cli.run_train_sifnet(parse([
+        "train-sifnet", "--offline-data", npz, "--variant", "chore",
+        "--image-size", str(size), "--crop-size", "1200", "--samples",
+        str(samples), "--batch-size", str(batch), "--epochs", "1",
+        "--out", out]))
+    sec = time.perf_counter() - t0
+    vals = [r["val_loss"] for r in _metrics(out) if "val_loss" in r]
+    if res["steps"] != frames // batch or not vals \
+            or not np.isfinite(vals).all():
+        raise SystemExit(f"train-sifnet --offline-data: {res}, val {vals}")
+    print(f"T3 train-sifnet --offline-data (chore, {size}^2, {samples} "
+          f"points, B={batch}, 1 epoch): {res['steps']} steps in {sec:.3f} "
+          f"s (validation included), val loss {vals[-1]:.4f}")
+
+    counters = LaunchCounts()
+    synth = os.path.join(root, "sifnet_synthetic")
+    counters.write(dict.fromkeys(counters.read(), 0))
+    k1_call = []
+    t0 = time.perf_counter()
+    with first_call(coverage, "_fwd_launch", k1_call):
+        res = cli.run_train_sifnet(parse(["train-sifnet", "--synthetic",
+                                          "--out", synth]))
+    sec = time.perf_counter() - t0
+    launches = counters.read()
+    check_launched("train-sifnet --synthetic", launches, ("max_logit_fwd",))
+    _val_falls("train-sifnet --synthetic", synth)
+    print(f"T3 train-sifnet --synthetic (the JAX defaults): {res['steps']} "
+          f"steps in {sec:.3f} s; launches {json.dumps(launches)}; K1 hard "
+          f"at its call: {k1_train_call(k1_call[0])}")
+
+    loaded = []
+    load_net = rt._load_net
+
+    def spy(model, ckpt, *a, **k):
+        net = load_net(model, ckpt, *a, **k)
+        if ckpt == synth:
+            loaded.append({n: v.cpu() for n, v in net.state_dict().items()})
+        return net
+
+    with wide_threshold(), mock.patch.object(rt, "_load_net", spy):
+        summary = rt.run_real_track(parse([
+            "track", "--seq", fx["seq_dir"], "--out",
+            os.path.join(root, "track"), "--smpl-model", fx["model_pkl"],
+            "--assets", fx["assets_root"], "--sifnet-ckpt", synth,
+            "--net-preset", "tiny", "--neural-only", "--redo",
+            *track_extra]))
+    ck = torch.load(find_checkpoint(synth), map_location="cpu",
+                    weights_only=False)["model_state_dict"]
+    if len(loaded) != 1 or any(not torch.equal(v, ck[n])
+                               for n, v in loaded[0].items()):
+        raise SystemExit("track did not load the trained checkpoint's "
+                         "weights")
+    packed = load_packed(summary["packed"])
+    for k in ("poses", "neural_pca", "neural_trans", "neural_visibility"):
+        if not np.isfinite(np.asarray(packed[k], np.float64)).all():
+            raise SystemExit(f"track with the trained SIF-Net: {k} not "
+                             "finite")
+    print(f"T3 track --neural-only --net-preset tiny with the trained "
+          f"checkpoint ({os.path.basename(find_checkpoint(synth))}): "
+          f"{frames} frames in {summary['seconds']:.2f} s, weights equal "
+          "to the checkpoint's, outputs finite")
+
+    for cmd in ("train-smoothnet", "train-infiller"):
+        out = os.path.join(root, cmd)
+        k4_call = []
+        spy = (first_call(chamfer, "chamfer_distance", k4_call)
+               if cmd == "train-infiller" else contextlib.nullcontext())
+        counters.write(dict.fromkeys(counters.read(), 0))
+        t0 = time.perf_counter()
+        with spy:
+            res = getattr(cli, "run_" + cmd.replace("-", "_"))(parse([
+                cmd, "--synthetic", "--out", out]))
+        sec = time.perf_counter() - t0
+        launches = counters.read()
+        vals = _val_falls(cmd, out)
+        extra = ""
+        if cmd == "train-infiller":
+            # 2 chamfer directions at each of the 2 validation points and
+            # the final score
+            if launches["nn_min_sqdist"] != 6:
+                raise SystemExit(f"train-infiller: K4 launched "
+                                 f"{launches['nn_min_sqdist']} times (want "
+                                 "6)")
+            extra = (f", downstream v2v {res['downstream_v2v_cm']} cm; K4 "
+                     f"launches {launches['nn_min_sqdist']}; K4 at its "
+                     f"downstream chamfer: {k4_downstream_call(k4_call[0])}")
+        print(f"T3 {cmd} --synthetic (the JAX defaults): {res['steps']} "
+              f"steps in {sec:.3f} s ({res['steps'] / sec:.2f} steps/s "
+              f"with validation); val loss {vals[0]:.5f} -> {vals[-1]:.5f}"
+              + extra)
 
 
 def main():
@@ -1673,8 +2113,11 @@ def main():
     for frames in opts.frames[1:]:
         run_main_path(frames, frames)
     launches["nn_min_sqdist"] = run_evaluate_path(fab, track_pack)
-    run_fixture_path(memory_inputs_s=inputs_s)
+    _, fx = run_fixture_path(memory_inputs_s=inputs_s)
     run_synthetic_path()
+    check_training_release()
+    check_training_card_vs_cpu()
+    run_training_cli(fx)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if rec["launches"] < 1:

@@ -150,3 +150,84 @@ def test_synthetic_phase_on_the_cpu(capsys):
         "nn_min_sqdist"}
     assert "track --synthetic (8 frames, the JAX defaults)" \
         in capsys.readouterr().out
+
+
+def _counting(fn):
+    """A wrapper that counts its calls as a kernel wrapper counts its
+    launches (the CPU path launches nothing)."""
+    def wrapped(*a, **k):
+        wrapped.launches += 1
+        return fn(*a, **k)
+    wrapped.launches = 0
+    return wrapped
+
+
+def test_training_release_phase_on_the_cpu(capsys):
+    """T1's steps, checks and record at tiny width (remat on and off)."""
+    res = chip_smoke.check_training_release(B=2, N=200, S=32, device="cpu",
+                                            preset="tiny")
+    assert set(res) == {"remat", "no_remat"}
+    for r in res.values():
+        assert r["B"] == 2 and r["seconds_a_step"] > 0
+        assert len(r["losses"]) == 7 and r["losses"][4] < r["losses"][0]
+    out = capsys.readouterr().out
+    assert "T1 tiny SIF-Net step, remat on" in out
+    assert "T1 tiny SIF-Net step, remat off" in out
+
+
+def test_training_card_vs_cpu_phase_on_the_cpu(capsys):
+    chip_smoke.check_training_card_vs_cpu(B=2, N=300, S=32, card="cpu")
+    out = capsys.readouterr().out
+    assert "parameters outside 1e-5: 0 of" in out and "0 after 3" in out
+
+
+def test_training_cli_phase_on_the_cpu(tmp_path, capsys):
+    """T3 on a 2-frame fixture: boundary-sample, train-sifnet
+    --offline-data and --synthetic (K1 counted through a wrapper that
+    routes the CPU tensors through a stand-in for its launch, the plain
+    version, so that the phase's comparison at that launch runs), the
+    trained checkpoint in `track`, and the SmoothNet and HVOP-Net
+    trainers (K4 counted through a wrapper, compared at the downstream
+    chamfer's inputs)."""
+    import functools
+    import vistracker_tpu_torch.cli.real_track as rt
+    import vistracker_tpu_torch.fit.generator as gen
+    import vistracker_tpu_torch.fit.smplt as smplt
+    from test_torch_track import GEN_KW, SMALL_FUNNEL
+    from vistracker_tpu_torch.data.fixture import generate_fixture_sequence
+    from vistracker_tpu_torch.ops import chamfer, coverage
+
+    fx = generate_fixture_sequence(str(tmp_path / "fx"), T=2, raster=64,
+                                   device="cpu")
+    orig = smplt.SMPLTFitConfig
+    with mock.patch.object(rt, "resolve_device",
+                           lambda name: torch.device("cpu")), \
+            mock.patch.object(chip_smoke, "WORK", str(tmp_path / "work")), \
+            mock.patch.object(smplt, "SMPLTFitConfig",
+                              lambda *a, **k: orig(global_iters=1,
+                                                   max_iters=1)), \
+            mock.patch.object(gen, "GeneratorConfig", functools.partial(
+                gen.GeneratorConfig, **GEN_KW)), \
+            mock.patch.object(gen, "FUNNEL_DEFAULT", SMALL_FUNNEL), \
+            mock.patch.object(coverage, "_fwd_launch",
+                              lambda cpl, active, size, stats=None:
+                              coverage.max_logit_fwd_plain(cpl, active,
+                                                           size)), \
+            mock.patch.object(coverage, "max_logit_fwd", _counting(
+                lambda *a: coverage._fwd_launch(*a))), \
+            mock.patch.object(chamfer, "nn_min_sqdist_fwd",
+                              _counting(chamfer.nn_min_sqdist_fwd)):
+        chip_smoke.run_training_cli(fx, samples=2000, size=64, batch=2,
+                                    track_extra=("--net-size", "64"))
+    out = capsys.readouterr().out
+    for needle in ("T3 boundary-sample --samples 2000 --flip: 2 frames",
+                   "T3 train-sifnet --offline-data (chore, 64^2",
+                   "T3 train-sifnet --synthetic (the JAX defaults): 8 steps",
+                   "weights equal to the checkpoint's",
+                   "T3 train-smoothnet --synthetic",
+                   "T3 train-infiller --synthetic", "K4 launches 6",
+                   "K1 hard at its call: 24 views x 256 faces (padded) x "
+                   "32^2, m and cnt bit-equal",
+                   "K4 at its downstream chamfer: ",
+                   "both directions, min and argmin bit-equal"):
+        assert needle in out, needle

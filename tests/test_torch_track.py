@@ -283,7 +283,14 @@ def test_import_leaves_jax_out():
             " vistracker_tpu_torch.data.imageio,"
             " vistracker_tpu_torch.data.fixture,"
             " vistracker_tpu_torch.render.viz,"
-            " vistracker_tpu_torch.cli.synthetic, chip_smoke;"
+            " vistracker_tpu_torch.cli.synthetic,"
+            " vistracker_tpu_torch.config,"
+            " vistracker_tpu_torch.native.pointmesh,"
+            " vistracker_tpu_torch.data.sampling,"
+            " vistracker_tpu_torch.data.offline,"
+            " vistracker_tpu_torch.data.datasets,"
+            " vistracker_tpu_torch.fit.train,"
+            " vistracker_tpu_torch.fit.trainer_loop, chip_smoke;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'flax', 'optax', 'vistracker_tpu', 'PIL', 'joblib')];"
             " print(bad); sys.exit(1 if bad else 0)")

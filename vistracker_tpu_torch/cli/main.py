@@ -22,16 +22,36 @@
     python -m vistracker_tpu_torch.cli.main rename-masks --seq <dir> \
         --mask-path <dir>
 
+    python -m vistracker_tpu_torch.cli.main boundary-sample --seq <dir> \
+        --gt-pack <pkl> --smpl-model <pkl> --assets <dir> \
+        --objects-root <dir> --out <npz dir> [--samples 20000] [--flip] \
+        [--neighbours] [--end N] [--redo] [--device cpu]
+    python -m vistracker_tpu_torch.cli.main train-sifnet \
+        (--synthetic [--frames 8] | --offline-data <npz dir> \
+         [--crop-size 1200] [--load-triplane] [--random-flip]) \
+        [--variant chore-triplane-vis] [--image-size 32] [--samples 512] \
+        [--batch-size 2] [--epochs 2] [--lr 1e-3] [--out <dir>] \
+        [--device cpu]
+    python -m vistracker_tpu_torch.cli.main train-smoothnet --synthetic \
+        [--variant smpl | objrot] [--window 64] [--frames 300] [--device cpu]
+    python -m vistracker_tpu_torch.cli.main train-infiller --synthetic \
+        [--clip-len 40] [--frames 120] [--device cpu]
+
 `track --synthetic` runs the whole pipeline (stages 1-7, evaluation
 included) on a generated scene (cli/synthetic.py) with seeded random
 networks of the JAX package's narrow synthetic widths; `track --seq` runs
 it on a BEHAVE-layout sequence folder (cli/real_track.py).
 
-`track` and `evaluate` run on the GPU (`--device cuda`, the default)
-unless `--device cpu` is given; without a GPU a cuda run raises. The
-flags carry the names and defaults of the JAX package's subcommands
-(its `--cpu` is `--device cpu` here); what the port does not have yet is
-refused by cli/real_track.py:check_supported.
+`boundary-sample` writes the per-frame boundary-sample npz files that
+`train-sifnet --offline-data` trains from; the three trainers write the
+reference's torch checkpoints (fit/trainer_loop.py), which `track`
+loads (`--sifnet-ckpt <train-sifnet out>`).
+
+`track`, `evaluate`, `boundary-sample` and the trainers run on the GPU
+(`--device cuda`, the default) unless `--device cpu` is given; without a
+GPU a cuda run raises. The flags carry the names and defaults of the JAX
+package's subcommands (its `--cpu` is `--device cpu` here); what the
+port does not have yet is refused by cli/real_track.py:check_supported.
 """
 from __future__ import annotations
 
@@ -186,6 +206,74 @@ def build_parser() -> argparse.ArgumentParser:
     rm.add_argument("--seq", required=True, help="sequence folder")
     rm.add_argument("--mask-path", required=True,
                     help="root containing <seq_name>/t*-k*.png files")
+
+    def device_flag(sp):
+        sp.add_argument("--device", default="cuda",
+                        help="torch device; cpu only when asked for")
+
+    ts = sub.add_parser("train-sifnet", help="train SIF-Net")
+    ts.add_argument("--synthetic", action="store_true")
+    device_flag(ts)
+    ts.add_argument("--out", default="experiments/sifnet")
+    ts.add_argument("--epochs", type=int, default=2)
+    ts.add_argument("--batch-size", type=int, default=2)
+    ts.add_argument("--frames", type=int, default=8)
+    ts.add_argument("--image-size", type=int, default=32)
+    ts.add_argument("--samples", type=int, default=512)
+    ts.add_argument("--lr", type=float, default=1e-3)
+    ts.add_argument("--offline-data", default=None,
+                    help="directory of boundary-sample npz files")
+    ts.add_argument("--crop-size", type=int, default=1200)
+    ts.add_argument("--variant", default="chore-triplane-vis",
+                    choices=["chore", "chore-triplane", "chore-triplane-vis"])
+    ts.add_argument("--load-triplane", action="store_true",
+                    help="concat the .smpl_triplane.png channels "
+                         "(offline mode)")
+    ts.add_argument("--random-flip", action="store_true",
+                    help="random horizontal flip loading _flip.npz labels")
+
+    bs = sub.add_parser("boundary-sample",
+                        help="per-frame boundary-sample npz files from a "
+                             "GT-packed sequence")
+    bs.add_argument("--seq", required=True, help="BEHAVE-layout seq dir")
+    bs.add_argument("--gt-pack", required=True, help="GT packed pkl")
+    bs.add_argument("--smpl-model", required=True)
+    bs.add_argument("--assets", required=True)
+    bs.add_argument("--objects-root", required=True)
+    bs.add_argument("--out", required=True, help="output npz directory")
+    bs.add_argument("--kid", type=int, default=1)
+    bs.add_argument("--samples", type=int, default=20000)
+    bs.add_argument("--grid-ratio", type=float, default=1.0 / 16.0)
+    bs.add_argument("--flip", action="store_true",
+                    help="also write the _flip.npz part-label variants")
+    bs.add_argument("--neighbours", action="store_true",
+                    help="store closest-surface-point labels")
+    bs.add_argument("--end", type=int, default=None)
+    bs.add_argument("--redo", action="store_true")
+    device_flag(bs)
+
+    tsm = sub.add_parser("train-smoothnet",
+                         help="train SmoothNet (smpl or objrot variant)")
+    tsm.add_argument("--synthetic", action="store_true")
+    device_flag(tsm)
+    tsm.add_argument("--variant", choices=["smpl", "objrot"], default="smpl")
+    tsm.add_argument("--out", default="experiments/smoothnet")
+    tsm.add_argument("--epochs", type=int, default=2)
+    tsm.add_argument("--batch-size", type=int, default=32)
+    tsm.add_argument("--window", type=int, default=64)
+    tsm.add_argument("--frames", type=int, default=300)
+    tsm.add_argument("--lr", type=float, default=1e-4)
+    tsm.add_argument("--noise", type=float, default=0.05)
+
+    ti = sub.add_parser("train-infiller", help="train HVOP-Net")
+    ti.add_argument("--synthetic", action="store_true")
+    device_flag(ti)
+    ti.add_argument("--out", default="experiments/infiller")
+    ti.add_argument("--epochs", type=int, default=2)
+    ti.add_argument("--batch-size", type=int, default=8)
+    ti.add_argument("--clip-len", type=int, default=40)
+    ti.add_argument("--frames", type=int, default=120)
+    ti.add_argument("--lr", type=float, default=1e-4)
     return p
 
 
@@ -236,8 +324,6 @@ def run_synthetic_track(args, weights: dict | None = None,
         raise SystemExit("--render (the GT | recon side-by-side GIF) is "
                          + _NOT_PORTED.format("8 (rendering)"))
     device = resolve_device(args.device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     weights = weights or {}
 
     def net(model, key, seed):
@@ -519,8 +605,6 @@ def _rot_extra(rot_errs: dict):
 def run_evaluate(args) -> str:
     """`evaluate` in split, single-sequence or frame-folder mode; prints
     and returns the path of the results JSON."""
-    import torch
-
     from ..core.smpl import load_smpl_pkl
     from ..data.behave import load_template
     from ..eval.evaluator import collect_results, object_name_of
@@ -528,7 +612,6 @@ def run_evaluate(args) -> str:
     from .real_track import resolve_device
 
     device = resolve_device(args.device)
-    torch.backends.cuda.matmul.allow_tf32 = False
     model = load_smpl_pkl(args.smpl_model, device)
     errors, rot_errs = {}, {}
     if args.split:
@@ -596,6 +679,341 @@ def rename_masks(seq: str, mask_path: str):
     return moved, skipped
 
 
+def _to_device(device):
+    import torch
+    return lambda batch: {k: torch.as_tensor(v, device=device)
+                          for k, v in batch.items()}
+
+
+def sifnet_synthetic_frames(T: int, S: int, device):
+    """The frames of `train-sifnet --synthetic`: the generated scene's GT
+    bodies and objects, the person and object masks rasterized in crop
+    space and the triplane masks (kernel K1, hard, on the card), composed
+    into the 8-channel inputs. Returns (frames, the scene's part
+    labels)."""
+    import torch
+
+    from ..core.camera import PerspectiveCamera
+    from ..core.smpl import lbs_forward
+    from ..data.packed import recon_obj_verts
+    from ..ops.rasterizer import rasterize_mask, render_triplane_masks_batch
+    from .synthetic import make_scene
+
+    cam = PerspectiveCamera(crop_size=1200)
+    scene = make_scene(T, num_verts=128, seed=0, device=device)
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    with torch.no_grad():
+        verts = lbs_forward(scene.model, dev(scene.poses_gt),
+                            dev(scene.betas_gt), dev(scene.trans_gt))[0]
+        bc = scene.landmarks.smpl_center(verts)
+        cc = cam.project_screen(bc[:, None, :])[:, 0]
+        smpl_faces = torch.as_tensor(scene.smpl_faces[:256],
+                                     device=device).long()
+        temp_faces = torch.as_tensor(scene.temp_faces, device=device).long()
+        obj_world = recon_obj_verts(scene.temp_verts, scene.obj_rot_gt,
+                                    scene.obj_trans_gt, np.ones(T))
+        tris = render_triplane_masks_batch(verts, smpl_faces, bc,
+                                           S).cpu().numpy()
+        frames = []
+        for i in range(T):
+            ndc_s = cam.project_points(verts[i:i + 1],
+                                       cc[i:i + 1])[0, :, :2]
+            ndc_o = cam.project_points(dev(obj_world[i:i + 1]),
+                                       cc[i:i + 1])[0, :, :2]
+            pm = rasterize_mask(ndc_s, smpl_faces, S).cpu().numpy()
+            om = rasterize_mask(ndc_o, temp_faces, S).cpu().numpy()
+            rgb = np.repeat(pm[..., None], 3, -1) * 0.5 \
+                + np.repeat(om[..., None], 3, -1) * 0.3
+            image = np.concatenate([rgb, pm[..., None], om[..., None],
+                                    tris[i]], -1).astype(np.float32)
+            frames.append(dict(
+                image=image, crop_center=cc[i].cpu().numpy(),
+                body_center=bc[i].cpu().numpy().astype(np.float32),
+                smpl_verts=verts[i].cpu().numpy(),
+                smpl_faces=scene.smpl_faces,
+                obj_verts=obj_world[i].astype(np.float32),
+                obj_faces=scene.temp_faces,
+                visibility=float(scene.occ_ratios[i])))
+    return frames, scene.part_labels
+
+
+def run_train_sifnet(args) -> dict:
+    """`train-sifnet`: the JAX command line's fixed network (the tiny
+    dimensions with remat) on --synthetic frames (online GT labelling of
+    the generated scene) or on --offline-data boundary npz files; prints
+    and returns {out, steps}."""
+    import torch
+
+    from ..core.camera import PerspectiveCamera
+    from ..data.datasets import PrefetchLoader, sifnet_example
+    from ..fit.train import (TrainConfig, init_train_state,
+                             make_train_step, sifnet_loss)
+    from ..fit.trainer_loop import LoopConfig, train_loop
+    from ..models.sifnet import SIFNet, SIFNetConfig
+    from ..models.weights import init_random_
+    from .real_track import resolve_device
+
+    if args.offline_data:
+        from ..data.offline import offline_example
+        files = sorted(f for f in glob.glob(
+            os.path.join(args.offline_data, "*.npz"))
+            if not f.endswith("_flip.npz"))
+        if not files:
+            raise SystemExit(f"no npz files under {args.offline_data}")
+        device = resolve_device(args.device)
+        cam = PerspectiveCamera(crop_size=args.crop_size)
+        T = len(files)
+
+        def example(i):
+            rng = np.random.RandomState(i * 9973 + 7)
+            flip = bool(args.random_flip and rng.rand() > 0.5)
+            return offline_example(files[i], total_samples=args.samples,
+                                   crop_size=args.crop_size,
+                                   net_size=args.image_size,
+                                   load_triplane=args.load_triplane,
+                                   flip=flip, rng=rng)
+    elif not args.synthetic:
+        raise SystemExit("training needs --synthetic or --offline-data")
+    else:
+        device = resolve_device(args.device)
+        cam = PerspectiveCamera(crop_size=1200)
+        T = args.frames
+        frames, part_labels = sifnet_synthetic_frames(T, args.image_size,
+                                                      device)
+
+        def example(i):
+            return sifnet_example(frames[i], part_labels,
+                                  num_samples=args.samples,
+                                  rng=np.random.RandomState(i))
+
+    loader = PrefetchLoader(example, T, args.batch_size, num_workers=2)
+    cfg = SIFNetConfig(variant=args.variant, num_stack=1, num_hourglass=1,
+                       hourglass_dim=32, tmpx_dim=32, triplane_stack=1,
+                       triplane_hg_dim=32, triplane_tmpx_dim=32,
+                       hidden_dim=16, remat=True, crop_size=args.crop_size)
+    model = init_random_(SIFNet(cfg, cam), torch.Generator().manual_seed(0))
+    tcfg = TrainConfig(learning_rate=args.lr)
+    state = init_train_state(model.to(device), tcfg)
+    state = train_loop(
+        state, make_train_step(model, tcfg), loader, val_loader=loader,
+        val_loss_fn=lambda st, b: sifnet_loss(st.model, b, tcfg)[0],
+        cfg=LoopConfig(num_epochs=args.epochs, out_dir=args.out,
+                       ck_period_min=1e9),
+        to_device=_to_device(device))
+    result = {"out": args.out, "steps": state.step}
+    print(json.dumps(result))
+    return result
+
+
+def run_boundary_sample(args) -> dict:
+    """`boundary-sample`: per-frame boundary npz files (and `_flip`
+    variants) from a GT-packed sequence, for `train-sifnet
+    --offline-data`; a frame whose file exists is skipped unless --redo.
+    Prints and returns {out, frames, written}."""
+    import torch
+
+    from ..core.landmarks import (load_landmarks, load_part_labels,
+                                  part_labels_array)
+    from ..core.smpl import lbs_forward, load_smpl_pkl
+    from ..data.behave import FrameDataReader, load_template
+    from ..data.offline import save_boundary_npz
+    from ..data.packed import gt_obj_verts, load_packed, recon_obj_verts
+    from .real_track import resolve_device
+
+    device = resolve_device(args.device)
+    os.makedirs(args.out, exist_ok=True)
+    model = load_smpl_pkl(args.smpl_model, device)
+    landmarks = load_landmarks(args.assets, device)
+    part_labels = part_labels_array(load_part_labels(args.assets),
+                                    num_verts=model.v_template.shape[0])
+    reader = FrameDataReader(args.seq)
+    temp_v, temp_f = load_template(args.objects_root,
+                                   reader.seq_info.get_obj_name())
+
+    gt = load_packed(args.gt_pack)
+    T = len(gt["poses"])
+    if args.end is not None:
+        T = min(T, args.end)
+    poses = np.asarray(gt["poses"]).reshape(len(gt["poses"]), -1)[:T]
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    with torch.no_grad():
+        verts = lbs_forward(model, dev(poses),
+                            dev(np.asarray(gt["betas"])[:T]),
+                            dev(np.asarray(gt["trans"])[:T]))[0]
+        body_kpts = landmarks.body_joints(verts).cpu().numpy()
+    verts = verts.cpu().numpy()
+    centers = body_kpts[:, 8]  # the SMPL center: body25 joint 8
+    ga = np.asarray(gt["obj_angles"])[:T]
+    if ga.ndim == 2:  # GT packs store axis-angle
+        overts = gt_obj_verts(temp_v, ga, np.asarray(gt["obj_trans"])[:T])
+    else:
+        overts = recon_obj_verts(temp_v, ga, np.asarray(gt["obj_trans"])[:T],
+                                 np.ones(T))
+
+    smpl_faces = np.asarray(model.faces)
+    written = 0
+    for i in range(T):
+        out = os.path.join(args.out, f"{reader.frames[i]}_k{args.kid}.npz")
+        if os.path.isfile(out) and not args.redo:
+            continue
+        kw = dict(smpl_verts=verts[i], smpl_faces=smpl_faces,
+                  obj_verts=overts[i], obj_faces=temp_f,
+                  part_labels=part_labels, body_center=centers[i],
+                  body_kpts=body_kpts[i],
+                  image_file=reader.get_color_file(i, args.kid),
+                  sample_num=args.samples, grid_ratio=args.grid_ratio,
+                  add_neighbours=args.neighbours)
+        save_boundary_npz(out, rng=np.random.RandomState(i * 31 + 7), **kw)
+        if args.flip:
+            save_boundary_npz(out.replace(".npz", "_flip.npz"), flip=True,
+                              rng=np.random.RandomState(i * 31 + 7), **kw)
+        written += 1
+    result = {"out": args.out, "frames": T, "written": written}
+    print(json.dumps(result))
+    return result
+
+
+def run_train_smoothnet(args) -> dict:
+    """`train-smoothnet --synthetic`: SmoothNet denoising windows of a
+    smooth generated trajectory (rot6d pose [+ betas and translation for
+    the smpl variant]) with Gaussian noise; prints and returns {out,
+    steps, noisy_l1, denoised_l1} (the last two on the first 64
+    windows)."""
+    import torch
+    from scipy.spatial.transform import Rotation
+
+    from ..core.rotations import axis_angle_to_rot6d
+    from ..data.datasets import PrefetchLoader
+    from ..fit.trainer_loop import (LoopConfig, make_smoothnet_train_step,
+                                    train_loop)
+    from ..models.smoothnet import SmoothNet, SmoothNetSMPL
+    from ..models.weights import init_random_
+    from ..ops.window_ops import seq_to_windows
+    from .real_track import resolve_device
+
+    if not args.synthetic:
+        raise SystemExit("real-data training needs packed GT; use --synthetic")
+    device = resolve_device(args.device)
+    rng = np.random.RandomState(0)
+    T, W = args.frames, args.window
+    t = np.linspace(0, 6 * np.pi, T)
+    if args.variant == "smpl":
+        pose = (0.3 * np.sin(t)[:, None]
+                * rng.randn(72)[None]).astype(np.float32)
+        rot6d = axis_angle_to_rot6d(torch.as_tensor(
+            pose.reshape(-1, 3))).numpy().reshape(T, 144)
+        feats = np.concatenate(
+            [rot6d, np.zeros((T, 10), np.float32),
+             np.stack([0.3 * np.sin(t), 0.1 * np.cos(t), 2.2 + 0 * t],
+                      -1).astype(np.float32)], 1)
+        model = SmoothNetSMPL(window_size=W, output_size=W)
+    else:
+        rots = Rotation.from_euler("y", (0.5 * t)[:, None]).as_matrix()
+        feats = rots[:, :, :2].reshape(T, 6).astype(np.float32)
+        model = SmoothNet(window_size=W, output_size=W)
+
+    gt_w = seq_to_windows(torch.as_tensor(feats), W, 1).numpy()  # (N, W, D)
+    gt_w = gt_w.transpose(0, 2, 1)                               # (N, D, W)
+    noisy_w = gt_w + rng.randn(*gt_w.shape).astype(np.float32) * args.noise
+    loader = PrefetchLoader(lambda i: dict(noisy=noisy_w[i], gt=gt_w[i]),
+                            len(gt_w), args.batch_size, num_workers=2)
+    model = init_random_(model, torch.Generator().manual_seed(0)).to(device)
+    init_state, step_fn, val_fn = make_smoothnet_train_step(model, args.lr)
+    state = train_loop(init_state(), step_fn, loader, val_loader=loader,
+                       val_loss_fn=val_fn,
+                       cfg=LoopConfig(num_epochs=args.epochs,
+                                      out_dir=args.out, ck_period_min=1e9),
+                       to_device=_to_device(device))
+    model.eval()
+    with torch.no_grad():
+        pred = model(torch.as_tensor(noisy_w[:64], device=device))
+    result = {"out": args.out, "steps": state.step,
+              "noisy_l1": round(float(np.abs(noisy_w[:64]
+                                             - gt_w[:64]).mean()), 5),
+              "denoised_l1": round(float(np.abs(pred.cpu().numpy()
+                                                - gt_w[:64]).mean()), 5)}
+    print(json.dumps(result))
+    return result
+
+
+def infiller_synthetic_sequence(T: int) -> dict:
+    """`train-infiller --synthetic`'s sequence: smooth generated SMPL
+    poses and translations, an object turning about y."""
+    from scipy.spatial.transform import Rotation
+    rng = np.random.RandomState(0)
+    t = np.linspace(0, 4 * np.pi, T)
+    return dict(
+        poses=(0.2 * np.sin(t)[:, None]
+               * rng.randn(72)[None]).astype(np.float32),
+        trans=np.stack([0.3 * np.sin(t), 0.1 * np.cos(t), 2.2 + 0 * t],
+                       -1).astype(np.float32),
+        obj_rot_real=Rotation.from_euler(
+            "y", (0.5 * t)[:, None]).as_matrix().astype(np.float32))
+
+
+def run_train_infiller(args) -> dict:
+    """`train-infiller --synthetic`: HVOP-Net on clips of a generated
+    sequence, with the whole autoregressive infill scored on the sequence
+    (an occluded stretch, K4's chamfer on the card) at every validation
+    point; the best model is picked by that v2v. Prints and returns
+    {out, steps, downstream_chamfer_cm, downstream_v2v_cm}."""
+    import torch
+
+    from ..data.datasets import InfillerClips, PrefetchLoader
+    from ..fit.infill import downstream_recon_eval, make_infiller
+    from ..fit.trainer_loop import (LoopConfig, make_infiller_train_step,
+                                    train_loop)
+    from ..models.infiller import ConditionalMInfiller, InfillerConfig
+    from ..models.weights import init_random_
+    from .real_track import resolve_device
+    from .synthetic import box_mesh
+
+    if not args.synthetic:
+        raise SystemExit("real-data training needs packed GT; use --synthetic")
+    device = resolve_device(args.device)
+    T = args.frames
+    seq = infiller_synthetic_sequence(T)
+    clips = InfillerClips([seq], clip_len=args.clip_len)
+    cfg = InfillerConfig(clip_len=args.clip_len, window=10)
+    model = init_random_(ConditionalMInfiller(cfg),
+                         torch.Generator().manual_seed(0)).to(device)
+    init_state, step_fn, val_fn = make_infiller_train_step(model, args.lr)
+    loader = PrefetchLoader(clips.example, len(clips), args.batch_size,
+                            num_workers=2)
+    run = make_infiller(model, cfg)
+    occ = np.ones(T, np.float32)
+    occ[T // 3:T // 2] = 0.0  # an occluded stretch
+    bv, bf = box_mesh()
+    held_out = [dict(poses=seq["poses"], trans=seq["trans"],
+                     obj_rot_real=seq["obj_rot_real"],
+                     obj_rot_gt=seq["obj_rot_real"], occ=occ,
+                     temp_verts=bv, temp_faces=bf)]
+
+    def downstream(state, step):
+        model.eval()
+        return downstream_recon_eval(run, held_out, init_thres=0.0,
+                                     samples=500, device=device)
+
+    state = train_loop(init_state(), step_fn, loader, val_loader=loader,
+                       val_loss_fn=val_fn,
+                       cfg=LoopConfig(num_epochs=args.epochs,
+                                      out_dir=args.out, ck_period_min=1e9),
+                       to_device=_to_device(device),
+                       downstream_fn=downstream,
+                       select_on="downstream_v2v_cm")
+    final = downstream(state, state.step)
+    result = {"out": args.out, "steps": state.step,
+              **{k: round(v, 4) for k, v in final.items()}}
+    print(json.dumps(result))
+    return result
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.cmd == "track":
@@ -627,6 +1045,11 @@ def main(argv=None):
     elif args.cmd == "rename-masks":
         moved, skipped = rename_masks(args.seq, args.mask_path)
         print(f"moved {moved} mask files ({skipped} already present)")
+    else:
+        {"train-sifnet": run_train_sifnet,
+         "boundary-sample": run_boundary_sample,
+         "train-smoothnet": run_train_smoothnet,
+         "train-infiller": run_train_infiller}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -80,17 +80,22 @@ def check_supported(args):
         if ck and ck != "random" and os.path.isdir(ck) \
                 and not is_torch_experiment_dir(ck):
             raise SystemExit(f"{ck} looks like an orbax checkpoint of the "
-                             "JAX trainer; orbax checkpoints are "
-                             + _NOT_PORTED.format("4 (training)"))
+                             "JAX trainer; the converter of orbax "
+                             "checkpoints is "
+                             + _NOT_PORTED.format("4d (orbax checkpoints)"))
 
 
 def resolve_device(name: str) -> torch.device:
     """The requested device; a CUDA request without a GPU raises (the
-    CPU is used only when asked for)."""
+    CPU is used only when asked for). Every entry point calls this, so it
+    also keeps fp32 parity there: no TF32 in matmuls or cuDNN
+    convolutions."""
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu "
                            "to run on the CPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return dev
 
 
@@ -151,9 +156,6 @@ def run_real_track(args, reader=None) -> dict:
 
     check_supported(args)
     device = resolve_device(args.device)
-    # fp32 parity: no TF32 in matmuls or cuDNN convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     stage_s = dict.fromkeys(STAGES, 0.0)
     stage_peak = dict.fromkeys(STAGES, 0.0)
     on_gpu = device.type == "cuda"

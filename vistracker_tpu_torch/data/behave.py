@@ -5,7 +5,9 @@ k{kid}.color.jpg, person/object masks, k{kid}.color.json (OpenPose) and
 k{kid}.mocap.json (FrankMocap). Images are read through data/imageio.py
 (PNG in numpy, JPEG in host C++), which decodes what PIL decodes without
 PIL. `MemoryFrameReader` serves the same interface from arrays held in
-memory, for callers that have frames but no files.
+memory, for callers that have frames but no files. `KinectCalib` and
+`KinectTransform` map points between the world and a kinect's camera
+frame from the sequence's calibration folder.
 """
 from __future__ import annotations
 
@@ -30,6 +32,18 @@ class SeqInfo:
     def get_obj_name(self) -> str:
         return self.info["cat"]
 
+    @property
+    def kids(self):
+        return self.info.get("kinects", [0, 1, 2, 3])
+
+    def beta_init(self):
+        return self.info.get("beta")
+
+
+def _read_info(seq: str) -> SeqInfo:
+    with open(osp.join(seq, "info.json")) as f:
+        return SeqInfo(json.load(f))
+
 
 def _clean_kpts(arr: np.ndarray, tol: float) -> np.ndarray:
     arr = np.asarray(arr, np.float32).reshape(-1, 3)[:25].copy()
@@ -46,10 +60,8 @@ class FrameDataReader:
         self.frames = sorted(
             osp.basename(d.rstrip("/")) for d in glob(osp.join(seq, "*/"))
             if osp.basename(d.rstrip("/")).startswith("t"))
-        self.seq_info = None
-        if osp.isfile(osp.join(seq, "info.json")):
-            with open(osp.join(seq, "info.json")) as f:
-                self.seq_info = SeqInfo(json.load(f))
+        self.seq_info = (_read_info(seq) if osp.isfile(
+            osp.join(seq, "info.json")) else None)
 
     def __len__(self):
         return len(self.frames)
@@ -57,8 +69,13 @@ class FrameDataReader:
     def cvt_end(self, end):
         return len(self.frames) if end is None else min(end, len(self.frames))
 
-    def get_frame_folder(self, idx: int) -> str:
-        return osp.join(self.seq_path, self.frames[idx])
+    def get_frame_folder(self, idx) -> str:
+        """The folder of frame `idx`, an index or a frame name."""
+        return osp.join(self.seq_path,
+                        idx if isinstance(idx, str) else self.frames[idx])
+
+    def get_color_file(self, idx, kid: int) -> str:
+        return osp.join(self.get_frame_folder(idx), f"k{kid}.color.jpg")
 
     def get_mask_file(self, idx: int, kid: int, cat: str = "person") -> str:
         folder = self.get_frame_folder(idx)
@@ -77,8 +94,7 @@ class FrameDataReader:
         return read_l(self.get_mask_file(idx, kid, cat)) > 127
 
     def get_color(self, idx: int, kid: int) -> np.ndarray:
-        return read_rgb(osp.join(self.get_frame_folder(idx),
-                                 f"k{kid}.color.jpg"))
+        return read_rgb(self.get_color_file(idx, kid))
 
     def get_body_kpts(self, idx: int, kid: int, tol: float = 0.5):
         """OpenPose body25 keypoints (25, 3); low-confidence rows zeroed."""
@@ -135,6 +151,49 @@ class MemoryFrameReader:
     def get_mocap_params(self, idx: int, kid: int):
         return (np.asarray(self.mocap[0][idx], np.float32).reshape(-1),
                 np.asarray(self.mocap[1][idx], np.float32).reshape(-1))
+
+
+class KinectCalib:
+    """One kinect's extrinsics (world <-> camera) from
+    <config>/<kid>/config.json: rotation (3, 3) and translation (3,)."""
+
+    def __init__(self, config_folder: str, kid: int):
+        with open(osp.join(config_folder, str(kid), "config.json")) as f:
+            cfg = json.load(f)
+        self.rotation = np.asarray(cfg["rotation"], np.float64).reshape(3, 3)
+        self.translation = np.asarray(cfg["translation"],
+                                      np.float64).reshape(3)
+
+    def world2local(self, points: np.ndarray) -> np.ndarray:
+        """World -> this camera: R^T (p - t), rows as points."""
+        return (points - self.translation) @ self.rotation
+
+    def local2world(self, points: np.ndarray) -> np.ndarray:
+        return points @ self.rotation.T + self.translation
+
+
+class KinectTransform:
+    """Every kinect's calibration of one sequence: the folder named by
+    info.json's "config" where it exists, else <seq>/config; a kinect
+    without a config.json is left out."""
+
+    def __init__(self, seq: str):
+        self.seq_info = _read_info(seq)
+        config = self.seq_info.info.get("config")
+        if not (config and osp.isdir(config)):
+            config = osp.join(seq, "config")
+        self.calibs = {}
+        for kid in self.seq_info.kids:
+            try:
+                self.calibs[kid] = KinectCalib(config, kid)
+            except FileNotFoundError:
+                pass
+
+    def world2local(self, points: np.ndarray, kid: int) -> np.ndarray:
+        return self.calibs[kid].world2local(points)
+
+    def local2world(self, points: np.ndarray, kid: int) -> np.ndarray:
+        return self.calibs[kid].local2world(points)
 
 
 def load_template(objects_root: str, obj_name: str, center: bool = True):

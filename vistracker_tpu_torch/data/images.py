@@ -11,6 +11,9 @@ filter, so no PIL is needed.
 `resize_uint8_bilinear` and `resize_uint8_nearest` are PIL's
 `Image.resize((W, H), BILINEAR | NEAREST)` on uint8 images, bit for bit:
 the fixture (data/fixture.py) upsamples its renders with them.
+`resize_float_bilinear` is PIL's BILINEAR on float ("F" mode) images of
+any aspect (equal to PIL's, or one float32 ulp from it), as the offline
+training crops and the depth-rescale test crop (data/offline.py) use.
 """
 from __future__ import annotations
 
@@ -123,6 +126,48 @@ def resize_uint8_nearest(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     rows = _pil_nearest_index(img.shape[0], h)
     cols = _pil_nearest_index(img.shape[1], w)
     return np.ascontiguousarray(img[rows][:, cols])
+
+
+def _pil_pass_float(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+    """One separable pass of PIL's float32 BILINEAR resample along `axis`:
+    double weights normalized to their running sum, each output summed in
+    double in tap order, stored as float32. The order matters: with the
+    dyadic weights of simple scales many sums land on float32 rounding
+    midpoints, where a sum in another order rounds the other way. PIL's
+    own build still rounds a few of those the other way at some scales
+    (1200 -> 512: 0.04% of values one float32 ulp apart)."""
+    in_size = img.shape[axis]
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ss = 1.0 / filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    idx = np.zeros((out_size, ksize), np.int64)
+    kk = np.zeros((out_size, ksize), np.float64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = [max(0.0, 1.0 - abs((x + xmin - center + 0.5) * ss))
+             for x in range(xmax)]
+        ww = sum(w)
+        kk[xx, :xmax] = [v / ww if ww != 0.0 else v for v in w]
+        idx[xx] = np.minimum(xmin + np.arange(ksize), in_size - 1)
+    # the resampled axis first and contiguous: each tap gathers whole rows
+    src = np.ascontiguousarray(np.moveaxis(np.asarray(img, np.float32),
+                                           axis, 0))
+    acc = np.zeros((out_size,) + src.shape[1:], np.float64)
+    wshape = (out_size,) + (1,) * (src.ndim - 1)
+    for k in range(ksize):
+        acc += src[idx[:, k]] * kk[:, k].reshape(wshape)
+    return np.moveaxis(acc.astype(np.float32), 0, axis)
+
+
+def resize_float_bilinear(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """PIL's Image.resize((width, height), BILINEAR) of a float32 ("F"
+    mode) (H, W) image, or of each channel of an (H, W, C) one, any
+    aspect: the horizontal pass, then the vertical one."""
+    return _pil_pass_float(_pil_pass_float(img, 1, size[0]), 0, size[1])
 
 
 def masks_to_bbox(masks) -> tuple[np.ndarray, np.ndarray]:

@@ -72,7 +72,10 @@ def _flax_path(module_path: str) -> list:
 
 def sifnet_state_dict_from_flax(params: dict, cfg: SIFNetConfig) -> dict:
     """The JAX package's flax SIF-Net params ({"params": ...} or the inner
-    tree; arrays as numpy) -> the port's state_dict (CPU float32)."""
+    tree; arrays as numpy) -> the port's state_dict (CPU float32), for
+    every variant cfg names (chore, chore-triplane, chore-triplane-vis;
+    shared or per-view triplane encoders). Any tree of the params' shape
+    converts, gradients included."""
     tree = params.get("params", params)
     model = SIFNet(cfg)
     modules = dict(model.named_modules(remove_duplicate=False))

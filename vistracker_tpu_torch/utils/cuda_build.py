@@ -26,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -94,6 +95,9 @@ def load_library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(_lib_path(name)))
 
 
+_HOST_BUILD = threading.Lock()  # loader threads may ask at once
+
+
 @functools.cache
 def load_host_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load the host C++ source csrc/<name>.cpp with
@@ -101,17 +105,22 @@ def load_host_library(name: str) -> ctypes.CDLL:
     src = (CSRC / f"{name}.cpp").read_bytes()
     digest = hashlib.sha256(src + " ".join(GXX_FLAGS).encode()).hexdigest()
     out = BUILD_DIR / f"lib{name}_{digest[:12]}.so"
-    if not out.is_file():
-        cxx = shutil.which("g++")
-        if not cxx:
-            raise RuntimeError(f"no C++ compiler (g++) to build csrc/{name}.cpp")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        res = subprocess.run([cxx, *GXX_FLAGS, "-o", str(tmp),
-                              str(CSRC / f"{name}.cpp")],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"g++ failed for csrc/{name}.cpp:\n"
-                               f"{res.stdout}{res.stderr}")
-        os.replace(tmp, out)
+    with _HOST_BUILD:
+        if not out.is_file():
+            _gxx(name, out)
     return ctypes.CDLL(str(out))
+
+
+def _gxx(name: str, out: Path):
+    cxx = shutil.which("g++")
+    if not cxx:
+        raise RuntimeError(f"no C++ compiler (g++) to build csrc/{name}.cpp")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    res = subprocess.run([cxx, *GXX_FLAGS, "-o", str(tmp),
+                          str(CSRC / f"{name}.cpp")],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"g++ failed for csrc/{name}.cpp:\n"
+                           f"{res.stdout}{res.stderr}")
+    os.replace(tmp, out)

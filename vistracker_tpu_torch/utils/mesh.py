@@ -1,10 +1,10 @@
-"""Host-side mesh utilities (PLY I/O, surface sampling, PCA axes, SDF
-grids), numpy only.
+"""Host-side mesh utilities (PLY I/O, surface sampling, vertex normals,
+point-to-mesh distances, PCA axes, SDF grids), numpy only.
 
-The port's own copy of what `track` needs from the JAX package's
-utils/mesh.py and data/sampling.py (compute_pca_axes). The random draws
-are numpy RandomState draws in the same order, so both packages sample
-the same template points from the same seed.
+The port's own copy of the JAX package's utils/mesh.py and of
+data/sampling.py:compute_pca_axes. The random draws are numpy
+RandomState draws in the same order, so both packages sample the same
+template points from the same seed.
 """
 from __future__ import annotations
 
@@ -101,6 +101,29 @@ def sample_surface(verts: np.ndarray, faces: np.ndarray, n: int,
     """Area-weighted uniform surface sampling, (n, 3) float32."""
     rng = rng or np.random.RandomState(0)
     return _surface_draws(verts, faces, n, rng)[0].astype(np.float32)
+
+
+def vertex_normals(verts: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    """Unit area-weighted vertex normals (V, 3)."""
+    fn = np.cross(verts[faces[:, 1]] - verts[faces[:, 0]],
+                  verts[faces[:, 2]] - verts[faces[:, 0]])
+    vn = np.zeros_like(verts)
+    for k in range(3):
+        np.add.at(vn, faces[:, k], fn)
+    return vn / np.maximum(np.linalg.norm(vn, axis=-1, keepdims=True), 1e-12)
+
+
+def point_mesh_distance(points: np.ndarray, verts: np.ndarray,
+                        faces: np.ndarray, n_surface: int = 60000):
+    """Approximate unsigned distance (N,) and closest surface point
+    (N, 3): the nearest of n_surface area-weighted surface samples (seed
+    0) and the vertices, by kd-tree. data/sampling.py:MeshDistance is the
+    exact query."""
+    from scipy.spatial import cKDTree
+    samp = sample_surface(verts, faces, n_surface, np.random.RandomState(0))
+    all_pts = np.concatenate([samp, verts.astype(np.float32)], 0)
+    dist, idx = cKDTree(all_pts).query(points, k=1)
+    return dist.astype(np.float32), all_pts[idx]
 
 
 def decimate_faces(faces: np.ndarray, max_faces: int,
