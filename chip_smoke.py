@@ -80,9 +80,11 @@ Phases (any failure exits non-zero):
      reader given: the frames come from disk) and `evaluate` of its pack
      against the fixture's GT pack (K4 4 launches an evaluated frame,
      finite errors);
- 12. `track --synthetic` at the JAX command line's defaults on the card:
-     K1 (hard and soft), K2, K3 and K4 must each launch, counted as on
-     the main path; the summary's v2v values must be finite;
+ 12. `track --synthetic --render` at the JAX command line's defaults on
+     the card: K1 (hard and soft), K2, K3 and K4 must each launch,
+     counted as on the main path; the summary's v2v values must be
+     finite; the GT | recon GIF must hold T frames of 128 x 256
+     (gif_frames, a block walker);
  13. training, T1: the release SIF-Net's training step at its training
      shapes (chore-triplane-vis, B = 8, 20,000 query points, 512^2, a
      seeded batch), 2 warm-up and 5 timed steps with remat on, then off
@@ -109,7 +111,23 @@ Phases (any failure exits non-zero):
      their defaults (steps/s, a validation loss that falls; K4 counted
      from 0: 6 launches; both directions of the first downstream
      chamfer's K4 bit-equal to the plain version on its inputs);
- 16. a {"kernels": [...]} line, the nvidia-smi name/power-limit line and,
+ 16. `render` through the port's entry point on the card over phase 11's
+     fixture: its `track` pack beside the fixture's GT pack with the object
+     moved into contact (the fixture's object stays 13-31 cm from the
+     body, and contact spheres need 4 cm), --top --contact-spheres --size
+     256, all 16 frames: both GIFs must hold 16 frames of 256 x 512 and a
+     contact sphere must be drawn; seconds a rendered frame, peak GiB,
+     the GIF writer's ms a frame; one frame of render_meshes_perspective
+     and one of render_top_view card against CPU on the same meshes (at
+     most 0.1% of the pixels apart by more than 1e-5: z-buffer ties);
+ 17. fit/joint.py's term_probe at the main path's stage-6 shape (16
+     frames, the 2,500-face object in 16 silhouette views at 256^2, 3,000
+     object points against a 6890-vertex body, frozen contact masks, an
+     analytic distance field in place of SIF-Net) on the card and on the
+     CPU from the same inputs: K1 soft, K2 and K3, counted from 0, must
+     launch; each term's value within 1e-4 relative and its obj_t
+     gradient within 1e-3 of its largest entry; seconds;
+ 18. a {"kernels": [...]} line, the nvidia-smi name/power-limit line and,
      last, {"ok": true, "device": {...}}.
 Scratch files go to build/chip_smoke/ next to this script. Imports no JAX.
 """
@@ -1626,29 +1644,353 @@ def run_fixture_path(frames=16, raster=512, chunk=16,
           + json.dumps({k: res[k]["mean"] for k in (*keys, "rot_error")
                         if k in res}))
     launches["nn_min_sqdist"] = k4
-    return launches, fx
+    return launches, dict(fx, track_pack=summary["packed"])
 
 
 def run_synthetic_path() -> dict:
-    """Phase 12: `track --synthetic` at the JAX command line's defaults on
-    the card; returns its launch counts."""
+    """Phase 12: `track --synthetic --render` at the JAX command line's
+    defaults on the card; returns its launch counts. The GT | recon GIF
+    must hold T frames of 128 x 256."""
     from vistracker_tpu_torch.cli.main import build_parser, run_synthetic_track
 
     counters = LaunchCounts()
     counters.write(dict.fromkeys(counters.read(), 0))
+    out = os.path.join(WORK, "synthetic")
+    args = build_parser().parse_args(["track", "--synthetic", "--render",
+                                      "--out", out])
     t0 = time.perf_counter()
-    res = run_synthetic_track(build_parser().parse_args(
-        ["track", "--synthetic", "--out", os.path.join(WORK, "synthetic")]))
+    res = run_synthetic_track(args)
     sec = time.perf_counter() - t0
     launches = counters.read()
     check_launched("track --synthetic", launches, launches)
     if not np.isfinite([res["smpl_v2v_cm"], res["obj_v2v_cm"]]).all():
         raise SystemExit(f"track --synthetic: non-finite v2v {res}")
-    print(f"track --synthetic (8 frames, the JAX defaults): {sec:.3f} s; "
-          f"smpl v2v {res['smpl_v2v_cm']:.4f} cm, obj v2v "
-          f"{res['obj_v2v_cm']:.4f} cm; launches {json.dumps(launches)}; "
+    screen, images, _ = gif_frames(os.path.join(out, "side_by_side.gif"))
+    if screen != (256, 128) or images != [(256, 128)] * args.frames:
+        raise SystemExit(f"track --synthetic --render: {len(images)} "
+                         f"frames on {screen} (want {args.frames} of 256 x "
+                         "128)")
+    print(f"track --synthetic --render ({args.frames} frames, the JAX "
+          "defaults): "
+          f"{sec:.3f} s; smpl v2v {res['smpl_v2v_cm']:.4f} cm, obj v2v "
+          f"{res['obj_v2v_cm']:.4f} cm; GIF {len(images)} frames of "
+          f"{screen[0]} x {screen[1]}; launches {json.dumps(launches)}; "
           f"stage seconds {json.dumps(res['timings'])}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 16-17: rendering and the stage-6 term probe
+# ---------------------------------------------------------------------------
+
+def gif_frames(path: str):
+    """Walk an animated GIF's blocks without decoding: ((logical width,
+    height), [(width, height) of each image], the NETSCAPE loop count or
+    None)."""
+    import struct
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:6] not in (b"GIF87a", b"GIF89a"):
+        raise ValueError(f"{path} is not a GIF")
+    w, h, flags = struct.unpack("<HHB", data[6:11])
+    pos = 13 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+
+    def skip_sub_blocks(pos):
+        while data[pos]:
+            pos += data[pos] + 1
+        return pos + 1
+
+    images, loop = [], None
+    while True:
+        kind = data[pos]
+        if kind == 0x3B:
+            return (w, h), images, loop
+        if kind == 0x21:
+            label = data[pos + 1]
+            if label == 0xFF and data[pos + 3:pos + 14] == b"NETSCAPE2.0":
+                loop = struct.unpack("<H", data[pos + 16:pos + 18])[0]
+            pos = skip_sub_blocks(pos + 2)
+        elif kind == 0x2C:
+            iw, ih, iflags = struct.unpack("<HHB", data[pos + 5:pos + 10])
+            images.append((iw, ih))
+            pos += 10 + (3 << ((iflags & 7) + 1) if iflags & 0x80 else 0)
+            pos = skip_sub_blocks(pos + 1)  # LZW minimum code size first
+        else:
+            raise ValueError(f"{path}: unknown GIF block 0x{kind:02x}")
+
+
+def pack_in_contact(gt_pack: str, model_pkl: str, template: str, out: str,
+                    gap: float = 0.01) -> str:
+    """A copy of a GT pack (axis-angle object rotations) with the object
+    moved, frame by frame, so that its template vertex nearest to a SMPL
+    vertex lies `gap` from it: a scene whose contact spheres must be drawn
+    (the fixture's object stays 13-31 cm from the body). Returns out."""
+    from scipy.spatial import cKDTree
+    from vistracker_tpu_torch.core.smpl import load_smpl_pkl
+    from vistracker_tpu_torch.data.packed import (gt_obj_verts, load_packed,
+                                                  save_packed)
+    from vistracker_tpu_torch.eval.evaluator import smpl_verts_from_packed
+    from vistracker_tpu_torch.utils.mesh import load_ply
+
+    d = load_packed(gt_pack)
+    poses = np.asarray(d["poses"]).reshape(len(d["poses"]), -1)
+    sv = smpl_verts_from_packed(load_smpl_pkl(model_pkl), poses,
+                                np.asarray(d["betas"]),
+                                np.asarray(d["trans"]))
+    temp_v = load_ply(template)[0]
+    ov = gt_obj_verts(temp_v - temp_v.mean(0), np.asarray(d["obj_angles"]),
+                      np.asarray(d["obj_trans"]))
+    trans = np.array(d["obj_trans"], np.float32)
+    for i in range(len(sv)):
+        dist, idx = cKDTree(sv[i]).query(ov[i])
+        j = int(np.argmin(dist))
+        step = sv[i][idx[j]] - ov[i][j]
+        trans[i] += step * (1.0 - gap / max(float(dist[j]), gap))
+    save_packed(out, {**d, "obj_trans": trans})
+    return out
+
+
+def images_agree(label: str, card, cpu, tol=1e-5, share=1e-3) -> float:
+    """At most `share` of the pixels may differ by more than tol (z-buffer
+    ties: two surfaces at one depth within float32 rounding); returns the
+    share that does."""
+    bad = float((np.abs(np.asarray(card) - np.asarray(cpu)) > tol)
+                .any(-1).mean())
+    if not (np.asarray(card).shape == np.asarray(cpu).shape
+            and bad <= share):
+        raise SystemExit(f"{label}: card and CPU renders differ in "
+                         f"{bad:.4%} of the pixels (at most {share:.1%} may)")
+    return bad
+
+
+def run_render_path(fx: dict, track_pack: str, size: int = 256,
+                    card: str = "cuda") -> dict:
+    """Phase 16: `render` through the port's entry point on the card over
+    the fixture of phase 11: its `track` pack beside the fixture's GT pack
+    with the object moved into contact (pack_in_contact), --top
+    --contact-spheres; both GIFs parsed (T frames of size x 2 size),
+    contact spheres drawn in at least one frame; seconds a rendered frame,
+    peak GiB and the GIF writer's ms a frame; then one frame of
+    render_meshes_perspective and one of render_top_view, card against
+    CPU on the same meshes."""
+    import torch
+    from vistracker_tpu_torch.cli.main import main as cli_main
+    from vistracker_tpu_torch.data import gif
+    from vistracker_tpu_torch.render import viz
+
+    root = os.path.join(WORK, "render")
+    os.makedirs(root, exist_ok=True)
+    template = os.path.join(fx["objects_root"], "boxmedium",
+                            "boxmedium.ply")
+    contact = pack_in_contact(fx["gt_pack"], fx["model_pkl"], template,
+                              os.path.join(root, "gt_in_contact.pkl"))
+    out = os.path.join(root, "side_by_side.gif")
+    drawn, kept, gif_s = [], [], []
+    real_cs, real_gif = viz.contact_spheres, gif.save_gif
+
+    def spheres(*a, **k):
+        got = real_cs(*a, **k)
+        drawn.append(len(got))
+        kept.append(a)
+        return got
+
+    def timed_gif(frames, *a, **k):
+        t0 = time.perf_counter()
+        path = real_gif(frames, *a, **k)
+        gif_s.append((time.perf_counter() - t0, len(frames)))
+        return path
+
+    on_card = card != "cpu"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(viz, "contact_spheres", spheres), \
+            mock.patch.object(gif, "save_gif", timed_gif):
+        cli_main(["render", "--recon", track_pack, "--recon2", contact,
+                  "--template", template, "--smpl-model", fx["model_pkl"],
+                  "--top", "--contact-spheres", "--assets",
+                  fx["assets_root"], "--size", str(size), "--out", out,
+                  "--device", card])
+    if on_card:
+        torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0
+    T = len(fx["occ_ratios"])
+    for path in (out, os.path.join(root, "side_by_side_top.gif")):
+        if not os.path.isfile(path):
+            raise SystemExit(f"render: {path} was not written")
+        screen, images, loop = gif_frames(path)
+        if screen != (2 * size, size) or images != [(2 * size, size)] * T \
+                or loop != 0:
+            raise SystemExit(f"render: {path} holds {len(images)} images "
+                             f"of {set(images)} on {screen}, loop {loop} "
+                             f"(want {T} of {(2 * size, size)}, loop 0)")
+    if not any(drawn):
+        raise SystemExit("render: no frame drew a contact sphere")
+    frames = 2 * T                       # two videos of T frames
+    gif_ms = 1e3 * sum(t for t, _ in gif_s) / sum(n for _, n in gif_s)
+    print(f"render (--top --contact-spheres, {T} frames of {size} x "
+          f"{2 * size}, two videos): {sec:.3f} s, {sec / frames:.4f} s a "
+          f"rendered frame (GIF writing included), peak {peak:.2f} GiB; "
+          f"GIF writer {gif_ms:.2f} ms a frame; contact spheres in "
+          f"{sum(1 for n in drawn if n)} of {len(drawn)} meshes' frames")
+
+    # one frame, card against CPU: the contact side's frame 0 meshes
+    from vistracker_tpu_torch.core.camera import PerspectiveCamera
+    from vistracker_tpu_torch.core.smpl import load_smpl_pkl
+    from vistracker_tpu_torch.utils.mesh import decimate_faces, load_ply
+    smpl_v, part_labels, obj_v = kept[-1][:3]
+    faces = decimate_faces(load_smpl_pkl(fx["model_pkl"]).faces, 4000)
+    temp_f = decimate_faces(load_ply(template)[1], 2500)
+    meshes = [(smpl_v, faces, (0.4, 0.8, 0.4)),
+              (obj_v, temp_f, (0.9, 0.6, 0.2))]
+    meshes += [(v, f, c) for c, v, f in real_cs(smpl_v, part_labels, obj_v)]
+    cam = PerspectiveCamera()
+    cc = cam.project_screen(torch.as_tensor(
+        smpl_v.mean(0, keepdims=True))[None]).numpy()[0, 0]
+    shares = [images_agree(
+        f"render {label}",
+        *[fn(dev) for dev in (card, "cpu")])
+        for label, fn in (
+            ("front", lambda d: viz.render_meshes_perspective(
+                meshes, cam, cc, size, device=d)),
+            ("top", lambda d: viz.render_top_view(meshes, cam, size,
+                                                  device=d)))]
+    print(f"render card vs CPU, one frame ({len(meshes)} meshes): front "
+          f"{shares[0]:.4%}, top {shares[1]:.4%} of the pixels apart by "
+          "more than 1e-5 (at most 0.1% may)")
+    return {"seconds_per_frame": sec / frames, "peak_gib": peak,
+            "gif_ms_per_frame": gif_ms}
+
+
+def probe_inputs(device, T=16, size=256, seed=8):
+    """The stage-6 term probe's problem at the main path's shape: 16
+    frames, a 6890-vertex body (the main path's sphere mesh), the 2,520-
+    face ellipsoid template decimated to 2,500 faces for 16 silhouette
+    views at size^2 with 3,000 surface points, the object pressed against
+    the body so both contact masks hold points, and an analytic
+    distance field in place of SIF-Net (distances to a body sphere and an
+    object sphere, parts a fixed linear map). Returns (optimize_object,
+    params, env)."""
+    import torch
+    from vistracker_tpu_torch.core.camera import PerspectiveCamera
+    from vistracker_tpu_torch.fit import joint as joint_mod
+    from vistracker_tpu_torch.utils.mesh import decimate_faces, sample_surface
+
+    rng = np.random.RandomState(seed)
+    hum_c = np.array([0.0, 0.0, 2.4], np.float32)
+    sv, _ = sphere_mesh(84, 82)
+    body = sv * np.array([0.6, 2.0, 0.5], np.float32) + hum_c
+    drift = rng.randn(T, 1, 3).astype(np.float32) * 0.01
+    smpl_verts = body[None] + drift
+    temp_v, temp_f = object_mesh()
+    obj_pts = sample_surface(temp_v, temp_f, 3000, np.random.RandomState(0))
+    obj_t = (np.array([0.05, 0.0, 2.14], np.float32) + drift[:, 0]
+             + rng.randn(T, 3).astype(np.float32) * 0.005)
+    from scipy.spatial.transform import Rotation
+    obj_r = Rotation.from_rotvec(rng.randn(T, 3) * 0.2).as_matrix() \
+        .astype(np.float32)
+    cam = PerspectiveCamera()
+    center_px = cam.project_screen(torch.as_tensor(obj_t)[:, None])[:, 0]
+    roi = torch.cat([center_px - 150.0, torch.full((T, 1), 300.0)], 1)
+    yy, xx = np.mgrid[0:size, 0:size] / (size - 1.0) * 2 - 1
+    ref = ((xx - 0.05) ** 2 / 0.5 + (yy + 0.03) ** 2 / 0.3 < 0.4)
+    part_w = torch.as_tensor(rng.randn(3, 14).astype(np.float32))
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    hc, oc = t(hum_c), t(obj_t)
+
+    def query(ctx, points):
+        d_h = (torch.linalg.norm(points - hc, dim=-1) - 0.3).abs()
+        d_o = (torch.linalg.norm(points - oc[:, None], dim=-1) - 0.1).abs()
+        return dict(df=torch.stack([d_h, d_o], -1),
+                    parts=(points - hc) @ part_w.to(points.device))
+
+    opt = joint_mod.make_object_optimizer(
+        query, lambda ctx, p: cam.project_screen(p),
+        joint_mod.JointFitConfig(sil_size=size))
+    sil = joint_mod.SilRefs(
+        t(np.repeat(ref[None], T, 0)),
+        t((rng.rand(T, size, size) > 0.1)), roi.to(device))
+    labels_h = np.arange(len(sv)) % 14
+    env = dict(obj_points=t(obj_pts).expand(T, -1, -1),
+               obj_s=torch.ones(T, device=device), occ=t(
+                   0.5 + 0.5 * rng.rand(T)), ctx=None,
+               ocent_target=oc + 0.02, smpl_verts=t(smpl_verts),
+               labels_h=labels_h, sil=sil,
+               sil_verts=t(temp_v).expand(T, -1, -1),
+               sil_faces=t(decimate_faces(temp_f, 2500), torch.int64))
+    params = {"obj_r": t(obj_r), "obj_t": oc}
+    labels_o, mask_h, mask_o = opt.contact_masks(params, dict(
+        env, labels_h=t(labels_h, torch.int64)))
+    env.update(labels_o=labels_o, mask_h=mask_h, mask_o=mask_o)
+    return opt, params, env
+
+
+# Two terms' obj_t gradients follow discrete choices that near-ties
+# decide: contact the nearest-neighbour pairings, mask the face of largest
+# logit at each pixel. On the CPU alone, moving obj_t by 1e-7 relative
+# moves them by 2.1e-3 (contact; 4.2e-3 at 3e-7) and 4.5e-3 (mask) of their
+# largest entries; the card differs from the CPU by 2.06e-3 and 6.4e-3
+# (H100 80GB HBM3 at 700 W, values within 5e-7 relative). Every other
+# term is held to 1e-3.
+PROBE_GRAD_LIMIT = {"contact": 5e-3, "mask": 1.5e-2}
+
+
+def check_term_probe(card="cuda", T=16, size=256):
+    """Phase 17: fit/joint.py's term_probe at the main path's stage-6
+    shape (probe_inputs) on the card and on the CPU: K1 soft, K2 and K3,
+    counted from 0, must launch on the card; each term's value within
+    1e-4 relative, its obj_t gradient within PROBE_GRAD_LIMIT (else 1e-3)
+    of its largest entry. Returns the card's seconds."""
+    import torch
+
+    counters = LaunchCounts()
+    out, secs = {}, {}
+    for dev in (card, "cpu"):
+        opt, params, env = probe_inputs(torch.device(dev), T, size)
+        if dev == card:
+            counters.write(dict.fromkeys(counters.read(), 0))
+        t0 = time.perf_counter()
+        out[dev] = opt.term_probe(params, env)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t0
+        if dev == card:
+            launches = counters.read()
+    if card != "cpu":    # a CPU rehearsal runs the plain versions
+        check_launched("term_probe", launches, ("max_logit_fwd_soft",
+                                                "max_logit_bwd", "label_nn"))
+    names = sorted(out["cpu"])
+    if list(out[card]) != names or not {"mask", "contact"} <= set(names):
+        raise SystemExit(f"term_probe: terms {list(out[card])} vs {names}")
+    worst, failed = {}, []
+    for n in names:
+        (cv, cg), (pv, pg) = out[card][n], out["cpu"][n]
+        cv, pv = float(cv), float(pv)
+        cg, pg = cg.cpu().numpy(), pg.cpu().numpy()
+        scale = float(np.abs(pg).max())
+        if not (np.isfinite([cv, pv]).all() and np.isfinite(cg).all()
+                and scale > 0):
+            raise SystemExit(f"term_probe {n}: value {cv}, |grad| {scale}")
+        worst[n] = (abs(cv - pv) / max(abs(pv), 1e-30),
+                    float(np.abs(cg - pg).max()) / scale)
+        if worst[n][0] > 1e-4 or worst[n][1] > PROBE_GRAD_LIMIT.get(n, 1e-3):
+            failed.append(n)
+    print(f"term_probe ({T} frames, 2,500-face object, {T} views at "
+          f"{size}^2, frozen contact masks): card {secs[card]:.3f} s, CPU "
+          f"{secs['cpu']:.3f} s; launches {json.dumps(launches)}; card vs "
+          "CPU (value relative, gradient of its largest entry): "
+          + ", ".join(f"{n} {r:.1e} / {g:.1e}" for n, (r, g)
+                      in worst.items()))
+    if failed:
+        raise SystemExit(f"term_probe: {failed} outside the limits (values "
+                         "1e-4 relative, gradients "
+                         f"{json.dumps(PROBE_GRAD_LIMIT)}, else 1e-3)")
+    return secs[card]
 
 
 # ---------------------------------------------------------------------------
@@ -2118,6 +2460,8 @@ def main():
     check_training_release()
     check_training_card_vs_cpu()
     run_training_cli(fx)
+    run_render_path(fx, fx["track_pack"])
+    check_term_probe()
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if rec["launches"] < 1:

@@ -148,7 +148,7 @@ def test_synthetic_phase_on_the_cpu(capsys):
     assert set(seen) == set(launches) == {
         "max_logit_fwd", "max_logit_fwd_soft", "max_logit_bwd", "label_nn",
         "nn_min_sqdist"}
-    assert "track --synthetic (8 frames, the JAX defaults)" \
+    assert "track --synthetic --render (8 frames, the JAX defaults)" \
         in capsys.readouterr().out
 
 
@@ -231,3 +231,66 @@ def test_training_cli_phase_on_the_cpu(tmp_path, capsys):
                    "K4 at its downstream chamfer: ",
                    "both directions, min and argmin bit-equal"):
         assert needle in out, needle
+
+
+def test_gif_frame_counter_on_known_files(tmp_path):
+    """gif_frames walks the blocks of the port's GIF (full frames) and of
+    PIL's (which may crop a frame to what changed): screen size, one entry
+    an image, the loop count (None without a NETSCAPE block)."""
+    import numpy as np
+    from PIL import Image
+    from vistracker_tpu_torch.data.gif import save_gif
+    rng = np.random.RandomState(0)
+    frames = rng.randint(0, 256, (3, 20, 30, 3)).astype(np.uint8)
+    frames[2] = frames[1]
+    frames[2, 5:8, 4:9] = 0
+    save_gif(frames, str(tmp_path / "port.gif"), 100)
+    assert chip_smoke.gif_frames(str(tmp_path / "port.gif")) == (
+        (30, 20), [(30, 20)] * 3, 0)
+    imgs = [Image.fromarray(f) for f in frames]
+    imgs[0].save(tmp_path / "pil.gif", save_all=True, append_images=imgs[1:],
+                 duration=100, loop=0)
+    screen, images, loop = chip_smoke.gif_frames(str(tmp_path / "pil.gif"))
+    assert screen == (30, 20) and loop == 0 and len(images) == 3
+    assert all(w <= 30 and h <= 20 for w, h in images)
+    Image.fromarray(frames[0]).save(tmp_path / "one.gif")
+    assert chip_smoke.gif_frames(str(tmp_path / "one.gif")) == (
+        (30, 20), [(30, 20)], None)
+
+
+def test_render_phase_on_the_cpu(tmp_path, capsys):
+    """Phase 16 on a 2-frame CPU fixture at 64 px: the contact pack, the
+    `render` run, its GIF and contact-sphere checks, the card-vs-CPU
+    frame comparison (here CPU against CPU) and its prints."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+    from vistracker_tpu_torch.data.fixture import generate_fixture_sequence
+    from vistracker_tpu_torch.data.packed import load_packed, save_packed
+
+    fx = generate_fixture_sequence(str(tmp_path / "fx"), T=2, raster=64,
+                                   device="cpu")
+    gt = load_packed(fx["gt_pack"])
+    rot = Rotation.from_rotvec(np.asarray(gt["obj_angles"])).as_matrix()
+    track = str(tmp_path / "track.pkl")
+    save_packed(track, {**gt, "obj_angles": rot.transpose(0, 2, 1)
+                        .astype(np.float32)})
+    with mock.patch.object(chip_smoke, "WORK", str(tmp_path / "work")):
+        res = chip_smoke.run_render_path(fx, track, size=64, card="cpu")
+    assert res["seconds_per_frame"] > 0 and res["gif_ms_per_frame"] > 0
+    out = capsys.readouterr().out
+    assert "render (--top --contact-spheres, 2 frames of 64 x 128" in out
+    assert "render card vs CPU, one frame" in out
+    contact = load_packed(str(tmp_path / "work" / "render"
+                              / "gt_in_contact.pkl"))
+    assert not np.allclose(contact["obj_trans"], gt["obj_trans"])
+
+
+def test_term_probe_phase_on_the_cpu(capsys):
+    """Phase 17 at 4 frames and 64^2: the probe's inputs (both contact
+    masks hold points), both runs, the comparison and its print."""
+    secs = chip_smoke.check_term_probe(card="cpu", T=4, size=64)
+    assert secs > 0
+    out = capsys.readouterr().out
+    assert "term_probe (4 frames, 2,500-face object, 4 views at 64^2" in out
+    for name in ("contact", "mask", "object", "ocent", "otemp", "ovtemp"):
+        assert f"{name} 0.0e+00 / 0.0e+00" in out, name

@@ -542,3 +542,77 @@ def test_frozen_leaves_and_fresh_moments(rng):
     out1, _, _ = t_joint._adam_phase(loss, p, {"a": 0.1, "b": 0.0}, 1, 1,
                                      lambda s: 1.0)
     np.testing.assert_allclose(out1["a"].numpy(), [0.9, -1.9], atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the stage-6 diagnostic: term_probe
+# ---------------------------------------------------------------------------
+
+TERMS = ("contact", "mask", "object", "ocent", "otemp", "ovtemp")
+
+
+@pytest.fixture(scope="module")
+def probes():
+    """Both packages' term_probe on one analytic problem with silhouette
+    refs and frozen contact masks (from contact_masks, as the joint phase
+    freezes them), w_ocent = 0 and an ocent target 3 cm off; once without
+    and once with an SDF grid (the collision term) and the body partly
+    inside the object. Returns
+    {variant: (port probe, JAX probe)}."""
+    rng = np.random.RandomState(7)
+    jcfg, tcfg = _cfgs()
+    assert tcfg.w_ocent == 0
+    prob = _object_problem(rng, SHORT)
+    jopt = j_joint.make_object_optimizer(j_query, j_project_px, jcfg)
+    topt = t_joint.make_object_optimizer(t_query, t_project_px, tcfg)
+    ja, ta = _j_obj_args(prob), _t_obj_args(prob)
+    jp = {"obj_r": ja[0], "obj_t": ja[1]}
+    tp = {"obj_r": ta[0], "obj_t": ta[1]}
+    jenv = dict(obj_points=ja[3], obj_s=ja[2], occ=ja[6], ctx=None,
+                ocent_target=ja[1] + 0.03, smpl_verts=ja[4],
+                labels_h=jnp.asarray(prob["labels_h"]), sil=ja[7],
+                sil_verts=ja[8], sil_faces=ja[9])
+    tenv = dict(obj_points=ta[3], obj_s=ta[2], occ=ta[6], ctx=None,
+                ocent_target=ta[1] + 0.03, smpl_verts=ta[4],
+                labels_h=prob["labels_h"], sil=ta[7], sil_verts=ta[8],
+                sil_faces=ta[9])
+    jm = _closure(jopt)["contact_masks"](jp, jenv)
+    tm = topt.contact_masks(tp, dict(tenv, labels_h=torch.as_tensor(
+        prob["labels_h"]).long()))
+    for a, b in zip(tm, jm):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    jenv.update(labels_o=jm[0], mask_h=jm[1], mask_o=jm[2])
+    tenv.update(labels_o=tm[0], mask_h=tm[1], mask_o=tm[2])
+    out = {"plain": (topt.term_probe(tp, tenv), jopt.term_probe(jp, jenv))}
+    # the collision variant: the body pulled around the object, partly
+    # inside it, so that the penetration term has a gradient
+    inside = (0.3 * (prob["smpl_verts"] - HUM_CENTER)
+              + prob["obj_t"][:, None]).astype(np.float32)
+    jenv["smpl_verts"], tenv["smpl_verts"] = (jnp.asarray(inside),
+                                              torch.as_tensor(inside))
+    vals, bmin, bmax = t_mesh.signed_distance_grid(
+        prob["sil_verts"][0], prob["sil_faces"], 12, padding=0.4)
+    jenv["sdf_grid"] = j_sdf.SDFGrid(*map(jnp.asarray, (vals, bmin, bmax)))
+    tenv["sdf_grid"] = t_sdf.SDFGrid(*map(torch.as_tensor,
+                                          (vals, bmin, bmax)))
+    out["collide"] = (topt.term_probe(tp, tenv), jopt.term_probe(jp, jenv))
+    return out
+
+
+@pytest.mark.parametrize("variant, name", [
+    *[("plain", n) for n in TERMS], ("collide", "collide")])
+def test_term_probe_matches_jax(probes, variant, name):
+    """Each weighted term's value (1e-4 relative) and its gradient w.r.t.
+    every frame's obj_t (1e-4 of its largest entry), as JAX's
+    value_and_grad gives them; ocent is probed at weight 1 although the
+    run's w_ocent is 0."""
+    tout, jout = probes[variant]
+    want = set(TERMS) | ({"collide"} if variant == "collide" else set())
+    assert set(tout) == set(jout) == want
+    assert list(tout) == sorted(tout)
+    tv, tg = tout[name]
+    jv, jg = jout[name]
+    assert tg.shape == (B, 3) and tv.ndim == 0
+    np.testing.assert_allclose(float(tv), float(jv), rtol=1e-4)
+    assert float(np.abs(np.asarray(jg)).max()) > 0, name
+    _assert_grads({"obj_t": tg}, {"obj_t": jg})

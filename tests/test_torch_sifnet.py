@@ -220,3 +220,82 @@ def test_input_crop_matches_pil_path(rng, hw, crop, net):
     b, cb = prepare_input_crop(rgb, pm, om, crop, net)
     np.testing.assert_array_equal(cb, ca)
     np.testing.assert_allclose(b, a, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the HGFilterGConv variant (models/hourglass.py, HGConfig.gconv)
+# ---------------------------------------------------------------------------
+
+GCONV = dict(input_channels=3, num_hourglass=1, hourglass_dim=256,
+             tmpx_dim=32)
+
+
+def _gconv_pair(num_stack):
+    from vistracker_tpu.models.hourglass import HGConfig as JC
+    from vistracker_tpu.models.hourglass import HGFilter as JH
+    from vistracker_tpu_torch.models.hourglass import HGConfig as TC
+    from vistracker_tpu_torch.models.hourglass import HGFilter as TH
+    jnet = JH(JC(gconv=True, num_stack=num_stack, **GCONV))
+    tnet = TH(TC(gconv=True, num_stack=num_stack, **GCONV))
+    return jnet, tnet.eval().requires_grad_(False)
+
+
+def _hg_close(jout, tout):
+    """Per-stack outputs, tmpx and normx (NHWC vs NCHW), 1e-4 of each
+    map's largest entry."""
+    (jo, jt, jn), (to, tt, tn) = jout, tout
+    for a, b in zip([*jo, jt, jn], [*to, tt, tn]):
+        a = np.asarray(a)
+        np.testing.assert_allclose(b.permute(0, 2, 3, 1).numpy(), a,
+                                   atol=1e-4 * np.abs(a).max())
+
+
+@pytest.mark.parametrize("num_stack", [1, 2])
+def test_gconv_hgfilter_matches_jax(rng, num_stack):
+    """flax's grouped 1x1 kernels (1, 1, in/256, out) carried into torch's
+    (out, in/256, 1, 1) by hgfilter_state_dict_from_flax; the forward
+    agrees to 1e-4 (the encoder tolerance above)."""
+    from vistracker_tpu_torch.models.hourglass import HGConfig as TC
+    from vistracker_tpu_torch.models.weights import \
+        hgfilter_state_dict_from_flax
+    jnet, tnet = _gconv_pair(num_stack)
+    x = rng.randn(2, 16, 16, 3).astype(np.float32)
+    params = jax.tree.map(np.asarray, jnet.init(jax.random.PRNGKey(1),
+                                                jnp.asarray(x)))
+    assert params["params"]["l0"]["kernel"].shape == (1, 1, 1, 256)
+    tnet.load_state_dict(hgfilter_state_dict_from_flax(
+        params, TC(gconv=True, num_stack=num_stack, **GCONV)))
+    assert tnet.l0.groups == 256 and tnet.l0.weight.shape == (256, 1, 1, 1)
+    with torch.no_grad():
+        tout = tnet(torch.from_numpy(x).permute(0, 3, 1, 2))
+    _hg_close(jnet.apply(params, jnp.asarray(x)), tout)
+
+
+def test_gconv_reference_state_dict_loads(rng, tmp_path):
+    """A reference-layout HGFilterGConv checkpoint (torch names, grouped
+    weights, "module." prefixes) loads through load_checkpoint_state_dict;
+    the JAX package's importer reads the same dict, and both nets agree.
+    A hourglass_dim that the groups do not divide is refused."""
+    from vistracker_tpu_torch.models.hourglass import HGConfig as TC
+    from vistracker_tpu_torch.models.hourglass import HGFilter as TH
+    jnet, tnet = _gconv_pair(2)
+    init_random_(tnet, torch.Generator().manual_seed(5))
+    for m in tnet.modules():     # norms away from the identity too
+        if isinstance(m, torch.nn.GroupNorm):
+            with torch.no_grad():
+                m.weight.uniform_(0.5, 1.5, generator=torch.Generator()
+                                  .manual_seed(6))
+    path = tmp_path / "hg_gconv.tar"
+    torch.save({"state_dict": {"module." + k: v for k, v in
+                               tnet.state_dict().items()}}, path)
+    sd = load_checkpoint_state_dict(str(path))
+    fresh = TH(TC(gconv=True, num_stack=2, **GCONV))
+    fresh.load_state_dict(sd)
+    params = {"params": TI.hgfilter_params(
+        {k: v.numpy() for k, v in sd.items()}, "", 2, 1)}
+    x = rng.randn(1, 16, 16, 3).astype(np.float32)
+    with torch.no_grad():
+        tout = fresh.eval()(torch.from_numpy(x).permute(0, 3, 1, 2))
+    _hg_close(jnet.apply(params, jnp.asarray(x)), tout)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        TH(TC(gconv=True, num_stack=2, **{**GCONV, "hourglass_dim": 64}))

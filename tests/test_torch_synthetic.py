@@ -6,6 +6,7 @@ recorded; each port stage is then fed the JAX stage's inputs and held to
 it (1e-4, as tests/test_torch_track.py::test_whole_track_matches_jax
 does), and the summary's v2v numbers are compared end to end."""
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -91,10 +92,10 @@ def _carried_weights(args):
     }
 
 
-def _record(rec, gen, infill, joint, smooth, smplt, rast, evaluator):
+def _record(rec, gen, infill, joint, smooth, smplt, rast, evaluator, viz):
     for mod, name in ((smooth, "smooth_smplt"), (smooth, "smooth_objrot"),
                       (smplt, "fit_smplt"), (rast, "render_triplane_masks_batch"),
-                      (evaluator, "eval_sequence")):
+                      (evaluator, "eval_sequence"), (viz, "save_video")):
         rec.function(mod, name)
     # the stage-4 input masks; JAX also calls rasterize_mask inside traced
     # code, whose calls are not stage 4's and are not kept
@@ -114,7 +115,8 @@ def _record(rec, gen, infill, joint, smooth, smplt, rast, evaluator):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Both packages' `track --synthetic --frames 4`, recorded; the port's
+    """Both packages' `track --synthetic --frames 4 --render`, recorded;
+    the port's
     run draws what the JAX run drew and rasterizes nothing of its own
     into the network inputs: it encodes the JAX run's masks (its own are
     recorded and compared below), as the whole-track test does."""
@@ -125,6 +127,7 @@ def runs(tmp_path_factory):
     import vistracker_tpu.fit.smoothing as jsmooth
     import vistracker_tpu.fit.smplt as jsmplt
     import vistracker_tpu.ops.rasterizer as jrast
+    import vistracker_tpu.render.viz as jviz
     import vistracker_tpu_torch.eval.evaluator as teval
     import vistracker_tpu_torch.fit.generator as tgen
     import vistracker_tpu_torch.fit.infill as tinfill
@@ -132,6 +135,7 @@ def runs(tmp_path_factory):
     import vistracker_tpu_torch.fit.smoothing as tsmooth
     import vistracker_tpu_torch.fit.smplt as tsmplt
     import vistracker_tpu_torch.ops.rasterizer as trast
+    import vistracker_tpu_torch.render.viz as tviz
     from vistracker_tpu.cli.main import build_parser as jax_parser
     from vistracker_tpu.cli.main import run_synthetic_track as jax_run
     from vistracker_tpu_torch.cli.main import build_parser, run_synthetic_track
@@ -139,14 +143,16 @@ def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("synthetic")
     with pytest.MonkeyPatch.context() as mp:
         jrec, trec = Recorder(mp), Recorder(mp)
-        _record(jrec, jgen, jinfill, jjoint, jsmooth, jsmplt, jrast, jeval)
+        _record(jrec, jgen, jinfill, jjoint, jsmooth, jsmplt, jrast, jeval,
+                jviz)
         jres = jax_run(jax_parser().parse_args(
             ["track", "--synthetic", "--cpu", "--frames", str(FRAMES),
-             "--out", str(root / "jax")]))
+             "--render", "--out", str(root / "jax")]))
         args = build_parser().parse_args(
             ["track", "--synthetic", "--device", "cpu", "--frames",
-             str(FRAMES), "--out", str(root / "port")])
-        _record(trec, tgen, tinfill, tjoint, tsmooth, tsmplt, trast, teval)
+             str(FRAMES), "--render", "--out", str(root / "port")])
+        _record(trec, tgen, tinfill, tjoint, tsmooth, tsmplt, trast, teval,
+                tviz)
         for name in ("rasterize_mask", "render_triplane_masks_batch"):
             theirs = iter([o for _, _, o in jrec.calls[name]])
             mp.setattr(trast, name, lambda *a, _o=getattr(trast, name), _j=
@@ -173,7 +179,7 @@ def test_every_stage_ran_alike(runs):
         fit_smplt=2, smooth_smplt=1, render_triplane_masks_batch=1,
         rasterize_mask=2 * FRAMES, make_generator=1, smooth_objrot=1,
         make_infiller=1, make_smpl_optimizer=1, make_object_optimizer=1,
-        eval_sequence=1)
+        eval_sequence=1, save_video=1)
     assert set(tres) == set(jres)
     assert set(tres["timings"]) == set(jres["timings"])
 
@@ -346,11 +352,47 @@ def test_summary_v2v_matches_jax(runs):
     assert _angle(to[0].numpy(), np.asarray(jo[0])) < 0.1
 
 
-def test_render_is_refused_naming_the_roadmap_item(tmp_path):
-    from vistracker_tpu_torch.cli.main import main
-    with pytest.raises(SystemExit, match="ROADMAP.md, Queue 1 item 8"):
-        main(["track", "--synthetic", "--render", "--device", "cpu",
-              "--out", str(tmp_path)])
+def test_render_gifs_match_jax(runs):
+    """`--render`: both packages write side_by_side.gif, T frames of
+    128 x 256, GT | recon. The frames given to save_video: the GT half
+    under tests/test_torch_render.py's image tolerance (at most 0.1% of
+    pixels apart by more than 1e-5), and so is the port's render of the
+    JAX run's own recon meshes against the JAX recon half. The port's
+    recon half renders the port's stage-6 result (1e-4 m from JAX's,
+    test_stage6_matches_jax), which moves flat shades by up to 1e-4 and
+    flips the winning face where the toy mesh's crossing faces lie that
+    close: at most 2% of its pixels may be apart by more than 1e-4
+    (measured 0.02% in one process, 0.5% in a pytest-xdist worker, whose
+    torch runs on one thread). The decoded GIFs have the same size,
+    frame count, durations and loop and agree within 2 x the stated mean
+    median-cut error."""
+    from test_torch_render import GIF_MEAN, _decode, assert_images_agree
+    from vistracker_tpu_torch.core.camera import PerspectiveCamera
+    from vistracker_tpu_torch.render.viz import render_meshes_perspective
+    jres, jrec, tres, trec = runs
+    (ja, _, jpath), = jrec.calls["save_video"]
+    (ta, _, tpath), = trec.calls["save_video"]
+    assert os.path.basename(tpath) == os.path.basename(jpath) \
+        == "side_by_side.gif"
+    jf, tf = np.asarray(ja[0]), np.asarray(ta[0])
+    assert tf.shape == jf.shape == (FRAMES, 128, 256, 3)
+    (ea, _, _), = jrec.calls["eval_sequence"]
+    (gen_args, _, _), = jrec.calls["make_generator"]
+    sverts_rc, overts_rc, smpl_faces, temp_faces = ea[2:6]
+    crop_centers = np.asarray(gen_args[2])
+    cam = PerspectiveCamera(crop_size=1200)
+    for i, (t, j) in enumerate(zip(tf, jf)):
+        assert (t[:, :128] > 0).any() and (t[:, 128:] > 0).any()
+        assert_images_agree(t[:, :128], j[:, :128])
+        assert_images_agree(render_meshes_perspective(
+            [(sverts_rc[i], smpl_faces[:256], (0.4, 0.6, 0.9)),
+             (overts_rc[i], temp_faces, (0.9, 0.4, 0.4))], cam,
+            crop_centers[i], size=128), j[:, 128:])
+        assert_images_agree(t[:, 128:], j[:, 128:], tol=1e-4, share=0.02)
+    got, want = _decode(tpath), _decode(jpath)
+    assert got[1:] == want[1:] and got[0].shape == want[0].shape
+    assert np.abs(got[0].astype(int) - want[0].astype(int)).mean() \
+        <= 2 * GIF_MEAN
 
 
 def test_track_needs_synthetic_or_seq():

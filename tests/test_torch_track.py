@@ -290,9 +290,13 @@ def test_import_leaves_jax_out():
             " vistracker_tpu_torch.data.offline,"
             " vistracker_tpu_torch.data.datasets,"
             " vistracker_tpu_torch.fit.train,"
-            " vistracker_tpu_torch.fit.trainer_loop, chip_smoke;"
+            " vistracker_tpu_torch.fit.trainer_loop,"
+            " vistracker_tpu_torch.ops.marching,"
+            " vistracker_tpu_torch.data.gif,"
+            " vistracker_tpu_torch.models.hourglass, chip_smoke;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
-            " ('jax', 'flax', 'optax', 'vistracker_tpu', 'PIL', 'joblib')];"
+            " ('jax', 'flax', 'optax', 'orbax', 'vistracker_tpu', 'PIL',"
+            " 'joblib', 'cv2')];"
             " print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

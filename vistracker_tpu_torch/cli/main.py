@@ -37,17 +37,28 @@
     python -m vistracker_tpu_torch.cli.main train-infiller --synthetic \
         [--clip-len 40] [--frames 120] [--device cpu]
 
+    python -m vistracker_tpu_torch.cli.main render --recon <pkl> \
+        [--recon2 <pkl>] --template <ply> --smpl-model <pkl> \
+        [--out render_out/side_by_side.gif] [--top] [--contact-spheres] \
+        [--assets <dir>] [--size 256] [--fps 15] [--max-frames 300] \
+        [--device cpu]
+
 `track --synthetic` runs the whole pipeline (stages 1-7, evaluation
 included) on a generated scene (cli/synthetic.py) with seeded random
-networks of the JAX package's narrow synthetic widths; `track --seq` runs
-it on a BEHAVE-layout sequence folder (cli/real_track.py).
+networks of the JAX package's narrow synthetic widths (`--render` adds
+the GT | recon side-by-side GIF); `track --seq` runs it on a
+BEHAVE-layout sequence folder (cli/real_track.py).
+
+`render` draws packed reconstructions (render/viz.py) as a GIF (no PIL)
+or, where cv2 is installed, an .mp4.
 
 `boundary-sample` writes the per-frame boundary-sample npz files that
 `train-sifnet --offline-data` trains from; the three trainers write the
 reference's torch checkpoints (fit/trainer_loop.py), which `track`
 loads (`--sifnet-ckpt <train-sifnet out>`).
 
-`track`, `evaluate`, `boundary-sample` and the trainers run on the GPU
+`track`, `evaluate`, `render`, `boundary-sample` and the trainers run on
+the GPU
 (`--device cuda`, the default) unless `--device cpu` is given; without a
 GPU a cuda run raises. The flags carry the names and defaults of the JAX
 package's subcommands (its `--cpu` is `--device cpu` here); what the
@@ -92,8 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--joint-iters", type=int, default=3)
     tr.add_argument("--eval-window", type=int, default=300)
     tr.add_argument("--render", action="store_true",
-                    help="GT | recon side-by-side GIF (refused: ROADMAP.md "
-                         "Queue 1 item 8)")
+                    help="GT | recon side-by-side GIF (--synthetic)")
     tr.add_argument("--dataset", choices=["behave", "intercap"],
                     default="behave", help="camera model")
     tr.add_argument("--kid", type=int, default=1)
@@ -274,6 +284,31 @@ def build_parser() -> argparse.ArgumentParser:
     ti.add_argument("--clip-len", type=int, default=40)
     ti.add_argument("--frames", type=int, default=120)
     ti.add_argument("--lr", type=float, default=1e-4)
+
+    rd = sub.add_parser("render",
+                        help="side-by-side video (gif/mp4) of packed "
+                             "recon(s), optional top view + contact spheres")
+    rd.add_argument("--recon", required=True, help="packed recon pkl")
+    rd.add_argument("--recon2", help="second recon (or GT pack) to compare")
+    rd.add_argument("--template", required=True, help="object template ply")
+    rd.add_argument("--smpl-model", required=True)
+    rd.add_argument("--out", default="render_out/side_by_side.mp4",
+                    help=".mp4 -> FFMPEG video through cv2 (refused where "
+                         "cv2 is not installed); other extensions -> GIF")
+    rd.add_argument("--top", action="store_true",
+                    help="also write a top-down view video with "
+                         "checkerboard ground (*_top.<ext>)")
+    rd.add_argument("--contact-spheres", action="store_true",
+                    help="draw per-part human-object contact spheres")
+    rd.add_argument("--assets", default=os.environ.get(
+        "VISTRACKER_ASSETS", "assets"),
+        help="assets root (part labels for contact spheres)")
+    rd.add_argument("--size", type=int, default=256)
+    rd.add_argument("--fps", type=int, default=15)
+    rd.add_argument("--max-frames", type=int, default=300)
+    rd.add_argument("--device", default="cuda",
+                    help="torch device (the JAX command line's --cpu is "
+                         "--device cpu); cpu only when asked for")
     return p
 
 
@@ -317,12 +352,9 @@ def run_synthetic_track(args, weights: dict | None = None,
     from ..models.weights import init_random_
     from ..ops.rasterizer import rasterize_mask, render_triplane_masks_batch
     from ..utils.mesh import compute_pca_axes
-    from .real_track import _NOT_PORTED, resolve_device
+    from .real_track import resolve_device
     from .synthetic import make_scene
 
-    if args.render:
-        raise SystemExit("--render (the GT | recon side-by-side GIF) is "
-                         + _NOT_PORTED.format("8 (rendering)"))
     device = resolve_device(args.device)
     weights = weights or {}
 
@@ -530,6 +562,24 @@ def run_synthetic_track(args, weights: dict | None = None,
                          scene.smpl_faces, scene.temp_faces,
                          window=args.eval_window, chamfer_samples=1000,
                          device=device)
+    if args.render:
+        # stage-7 visualization: the GT | recon side-by-side GIF
+        from ..render.viz import (render_meshes_perspective, save_video,
+                                  side_by_side)
+        sf = scene.smpl_faces[:256]
+        left, right = [], []
+        for i in range(T):
+            left.append(render_meshes_perspective(
+                [(sverts_gt[i], sf, (0.4, 0.8, 0.4)),
+                 (obj_gt_world[i], scene.temp_faces, (0.9, 0.6, 0.2))],
+                cam, crop_centers[i], size=128, device=device))
+            right.append(render_meshes_perspective(
+                [(sverts_rc[i], sf, (0.4, 0.6, 0.9)),
+                 (overts_rc[i], scene.temp_faces, (0.9, 0.4, 0.4))],
+                cam, crop_centers[i], size=128, device=device))
+        vid = save_video(side_by_side(np.stack(left), np.stack(right)),
+                         os.path.join(args.out, "side_by_side.gif"))
+        _stage(f"wrote visualization {vid}")
     outfile = collect_results({"Date00_Sub00_synthetic": errs}, args.out,
                               "synthetic-track")
     lap("pack_eval", t0)
@@ -544,6 +594,103 @@ def run_synthetic_track(args, weights: dict | None = None,
         timings={k: round(v, 2) for k, v in timings.items()})
     print(json.dumps(result, indent=2))
     return result
+
+
+def run_render(args) -> list:
+    """`render`: side-by-side mesh rendering of packed reconstructions
+    (the reference's render/render_side_comp.py and render_recon.py
+    roles) as a GIF, or an .mp4 where cv2 is installed, with an optional
+    top-down view over a checkerboard ground (render_recon.py:173-183,
+    213-225) and per-part contact spheres (nr_utils.py:
+    get_contact_spheres). Renders on the device; prints and returns the
+    files written."""
+    import torch
+
+    from ..core.camera import PerspectiveCamera
+    from ..core.smpl import load_smpl_pkl
+    from ..data.packed import gt_obj_verts, load_packed, recon_obj_verts
+    from ..eval.evaluator import smpl_verts_from_packed
+    from ..render.viz import (MP4_REFUSAL, contact_spheres, mp4_writable,
+                              render_meshes_perspective, render_top_view,
+                              save_video, side_by_side)
+    from ..utils.mesh import decimate_faces, load_ply
+    from .real_track import resolve_device
+
+    if args.out.lower().endswith(".mp4") and not mp4_writable():
+        raise SystemExit(MP4_REFUSAL)
+    device = resolve_device(args.device)
+    model = load_smpl_pkl(args.smpl_model, device)
+    temp_v, temp_f = load_ply(args.template)
+    temp_v = temp_v - temp_v.mean(0)
+    temp_f = decimate_faces(temp_f, 2500)
+    smpl_f = decimate_faces(model.faces, 4000)
+    cam = PerspectiveCamera()
+    part_labels = None
+    if args.contact_spheres:
+        from ..core.landmarks import load_part_labels, part_labels_array
+        part_labels = np.asarray(part_labels_array(
+            load_part_labels(args.assets),
+            num_verts=model.v_template.shape[0]))
+
+    def load_verts(path):
+        d = load_packed(path)
+        poses = np.asarray(d["poses"]).reshape(len(d["poses"]), -1)
+        sv = smpl_verts_from_packed(model, poses, np.asarray(d["betas"]),
+                                    np.asarray(d["trans"]))
+        ga = np.asarray(d["obj_angles"])
+        if ga.ndim == 2:
+            ov = gt_obj_verts(temp_v, ga, np.asarray(d["obj_trans"]))
+        else:
+            scales = np.asarray(d.get("obj_scales", np.ones(len(ga))))
+            ov = recon_obj_verts(temp_v, ga, np.asarray(d["obj_trans"]),
+                                 np.where(np.isfinite(scales) & (scales > 0),
+                                          scales, 1.0))
+        return sv, ov
+
+    sv1, ov1 = load_verts(args.recon)
+    T = min(len(sv1), args.max_frames)
+
+    def frame_meshes(sv, ov, colors, i):
+        meshes = [(sv[i], smpl_f, colors[0]), (ov[i], temp_f, colors[1])]
+        if part_labels is not None:
+            for color, cv, cf in contact_spheres(sv[i], part_labels, ov[i]):
+                meshes.append((cv, cf, color))
+        return meshes
+
+    def render_all(sv, ov, colors, top=False):
+        frames = []
+        for i in range(T):
+            meshes = frame_meshes(sv, ov, colors, i)
+            if top:
+                frames.append(render_top_view(meshes, cam, size=args.size,
+                                              device=device))
+            else:
+                cc = cam.project_screen(torch.as_tensor(
+                    sv[i].mean(0, keepdims=True))[None]).numpy()[0, 0]
+                frames.append(render_meshes_perspective(
+                    meshes, cam, cc, size=args.size, device=device))
+        return np.stack(frames)
+
+    colors1 = [(0.4, 0.6, 0.9), (0.9, 0.4, 0.4)]
+    colors2 = [(0.4, 0.8, 0.4), (0.9, 0.6, 0.2)]
+    sv2 = ov2 = None
+    if args.recon2:
+        sv2, ov2 = load_verts(args.recon2)
+
+    def video(top=False):
+        left = render_all(sv1, ov1, colors1, top)
+        if sv2 is None:
+            return left
+        return side_by_side(left, render_all(sv2, ov2, colors2, top))
+
+    outputs = [save_video(video(), args.out, args.fps)]
+    if args.top:
+        # the companion top view (render_recon.py writes *_top.mp4)
+        stem, ext = os.path.splitext(args.out)
+        outputs.append(save_video(video(top=True), f"{stem}_top{ext}",
+                                  args.fps))
+    print("\n".join(outputs))
+    return outputs
 
 
 def eval_one(model, recon_path, gt_path, temp_v, temp_f, window, smpl_only,
@@ -1049,7 +1196,8 @@ def main(argv=None):
         {"train-sifnet": run_train_sifnet,
          "boundary-sample": run_boundary_sample,
          "train-smoothnet": run_train_smoothnet,
-         "train-infiller": run_train_infiller}[args.cmd](args)
+         "train-infiller": run_train_infiller,
+         "render": run_render}[args.cmd](args)
 
 
 if __name__ == "__main__":

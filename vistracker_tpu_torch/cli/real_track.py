@@ -40,6 +40,10 @@ _NOT_PORTED = "not in the port yet (ROADMAP.md, Queue 1 item {})"
 # encoded in slices of this many frames and the caches are joined.
 ENCODE_FRAMES = 16
 SMOOTH_WINDOW = 64
+# checkpoint flag -> scripts/orbax_to_torch.py --kind
+ORBAX_KINDS = {"sifnet_ckpt": "sifnet", "infiller_ckpt": "infiller",
+               "smoothnet_smpl_ckpt": "smoothnet-smpl",
+               "smoothnet_objrot_ckpt": "smoothnet-objrot"}
 STAGES = ("setup", "stage1", "stage2", "stage3", "inputs", "stage4_encode",
           "stage4_harvest", "stage6a", "stage5", "stage6b", "pack")
 
@@ -74,15 +78,19 @@ def check_supported(args):
             if not need:
                 raise SystemExit(f"track requires {name} unless "
                                  "--neural-only is given")
-    for flag in ("sifnet_ckpt", "infiller_ckpt", "smoothnet_smpl_ckpt",
-                 "smoothnet_objrot_ckpt"):
+    for flag, kind in ORBAX_KINDS.items():
         ck = getattr(args, flag)
         if ck and ck != "random" and os.path.isdir(ck) \
                 and not is_torch_experiment_dir(ck):
-            raise SystemExit(f"{ck} looks like an orbax checkpoint of the "
-                             "JAX trainer; the converter of orbax "
-                             "checkpoints is "
-                             + _NOT_PORTED.format("4d (orbax checkpoints)"))
+            raise SystemExit(
+                f"{ck} looks like an orbax checkpoint of the JAX trainer, "
+                "which the port does not read (orbax is a JAX package). "
+                "Convert it where orbax and flax are installed: python "
+                f"scripts/orbax_to_torch.py --kind {kind}"
+                + (" --preset <tiny|small|release>" if kind == "sifnet"
+                   else "")
+                + f" --exp {ck} --out <dir>, then pass --"
+                + flag.replace("_", "-") + " <dir>")
 
 
 def resolve_device(name: str) -> torch.device:

@@ -23,7 +23,9 @@ silhouette runs through the coverage kernels
 (ops/coverage.py:soft_silhouette_batch) and the contact pairing through
 the labelled nearest-neighbour kernel (ops/label_nn.py); on CPU tensors
 those run their plain versions. The optional collision term is an
-SDF-grid penalty (ops/sdf_grid.py).
+SDF-grid penalty (ops/sdf_grid.py). `optimize_object.term_probe` is
+the stage-6 diagnostic: every object term's weighted value and its
+gradient w.r.t. obj_t, one term at a time.
 """
 from __future__ import annotations
 
@@ -473,6 +475,66 @@ def make_object_optimizer(query_fn, project_px,
     min_j = max(0.0, cfg.early_stop_min_frac * cfg.joint_max_iter
                 - (cfg.iter_obj + cfg.iter_sil))
 
+    def _all_terms(p, env):
+        """Every obj_t-coupled object term, WEIGHTED at decay 0, as a dict
+        of scalars: the joint phase's terms always; the silhouette term
+        when env carries sil refs; contact when it carries the frozen
+        masks (labels_o, mask_h, mask_o; nn_plans are made here when it
+        has none); collision when it carries an sdf_grid. ocent is
+        computed whatever the run's w_ocent and reported at weight
+        max(w_ocent, 1): the probe measures its pull before it is
+        switched on."""
+        obj, r = transformed(p, env)
+        terms = {}
+        obj_losses(query_fn(env["ctx"], obj), env["obj_s"], env["occ"],
+                   terms)
+        if "ocent_target" in env:
+            d2 = ((obj.mean(1) - env["ocent_target"]) ** 2).sum(-1)
+            terms["ocent"] = (d2 * env["occ"]).mean()
+        temporal(obj, True, terms)
+        if "labels_o" in env:
+            labels_h = torch.as_tensor(np.asarray(env["labels_h"]),
+                                       device=obj.device).long()
+            plans = env.get("nn_plans") or contact_plans(
+                env["smpl_verts"], labels_h, env["labels_o"], env["mask_h"],
+                env["mask_o"])
+            terms["contact"] = contact_loss(
+                obj, env["smpl_verts"], labels_h, env["labels_o"],
+                env["mask_h"], env["mask_o"], plans)
+        if "sil" in env:
+            terms["mask"] = sil_loss(env["ctx"], r, p["obj_t"], env["obj_s"],
+                                     env["sil"], env["sil_verts"],
+                                     env["sil_faces"], env["occ"])
+        if "sdf_grid" in env:
+            local = torch.bmm(
+                env["smpl_verts"] / env["obj_s"][:, None, None]
+                - p["obj_t"][:, None, :], r.transpose(-1, -2))
+            terms["collide"] = penetration_loss(env["sdf_grid"], local)
+        w = dict(object=cfg.w_object, otemp=cfg.w_otemp,
+                 ovtemp=cfg.w_ovtemp, mask=cfg.w_mask,
+                 contact=cfg.w_contact, collide=cfg.w_collide,
+                 ocent=max(cfg.w_ocent, 1.0))
+        return {k: terms[k] * w[k] for k in terms if k in w}
+
+    def term_probe(params, env):
+        """Per-term value and gradient w.r.t. obj_t: {term: (scalar value,
+        (B, 3) gradient)}, names sorted. The gradient is that of the WHOLE
+        weighted term w.r.t. each frame's translation, so for coupled
+        terms (temporal, contact's flat pair mean) it is the true
+        per-frame pull, cross-frame coupling included: a term helps frame
+        i's translation iff -grad[i] points toward the true one. One
+        forward of every term, then torch.autograd.grad one term at a
+        time."""
+        obj_t = params["obj_t"].detach().clone().requires_grad_(True)
+        terms = _all_terms({"obj_r": params["obj_r"].detach(),
+                            "obj_t": obj_t}, env)
+        out = {}
+        for name in sorted(terms):
+            grad, = torch.autograd.grad(terms[name], obj_t,
+                                        retain_graph=True)
+            out[name] = (terms[name].detach(), grad)
+        return out
+
     def optimize_object(obj_r, obj_t, obj_s, obj_points, smpl_verts,
                         labels_h, occ_ratios, sil: SilRefs, sil_verts,
                         sil_faces, ctx=None, sdf_grid: SDFGrid | None = None):
@@ -511,4 +573,5 @@ def make_object_optimizer(query_fn, project_px,
     optimize_object.loss_joint = loss_joint
     optimize_object.contact_masks = contact_masks
     optimize_object.contact_plans = contact_plans
+    optimize_object.term_probe = term_probe
     return optimize_object

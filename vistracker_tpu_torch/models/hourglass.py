@@ -5,6 +5,10 @@ names (conv1, bn1, conv2..4, m{i}.b1_{l}/b2_{l}/b2_plus_1/b3_{l},
 top_m_{i}, conv_last{i}, bn_end{i}, l{i}, bl{i}, al{i}; ConvBlock
 conv1..3, bn1..4, downsample = (bn4, ReLU, 1x1 conv)), so a released
 state_dict loads with load_state_dict. GroupNorm(32), eps 1e-5.
+`HGConfig.gconv` gives the reference's HGFilterGConv variant
+(HGFilters.py:205-331): the stack-coupling 1x1 convs l{i}, bl{i} and
+al{i} are grouped, groups = the hourglass width (256), which needs
+hourglass_dim to be a multiple of it.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ class HGConfig:
     num_hourglass: int = 2
     hourglass_dim: int = 256
     tmpx_dim: int = 64
+    gconv: bool = False   # grouped stack-coupling convs (HGFilterGConv)
 
 
 def _norm(ch: int) -> nn.GroupNorm:
@@ -98,6 +103,10 @@ class HGFilter(nn.Module):
         super().__init__()
         c = self.cfg = cfg
         hf = HG_FEATURES
+        groups = hf if c.gconv else 1
+        if c.hourglass_dim % groups:
+            raise ValueError(f"gconv needs hourglass_dim ({c.hourglass_dim}) "
+                             f"to be a multiple of {hf}")
         self.conv1 = nn.Conv2d(c.input_channels, c.tmpx_dim, 7, stride=2,
                                padding=3)
         self.bn1 = _norm(c.tmpx_dim)
@@ -109,10 +118,12 @@ class HGFilter(nn.Module):
             self.add_module(f"top_m_{i}", ConvBlock(hf, hf))
             self.add_module(f"conv_last{i}", nn.Conv2d(hf, hf, 1))
             self.add_module(f"bn_end{i}", _norm(hf))
-            self.add_module(f"l{i}", nn.Conv2d(hf, c.hourglass_dim, 1))
+            self.add_module(f"l{i}", nn.Conv2d(hf, c.hourglass_dim, 1,
+                                               groups=groups))
             if i < c.num_stack - 1:
-                self.add_module(f"bl{i}", nn.Conv2d(hf, hf, 1))
-                self.add_module(f"al{i}", nn.Conv2d(c.hourglass_dim, hf, 1))
+                self.add_module(f"bl{i}", nn.Conv2d(hf, hf, 1, groups=groups))
+                self.add_module(f"al{i}", nn.Conv2d(c.hourglass_dim, hf, 1,
+                                                    groups=groups))
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))

@@ -8,6 +8,8 @@ are stripped. `sifnet_state_dict_from_flax` converts the JAX package's
 flax params (numpy arrays) into the same state_dict, which is how the
 tests hold the two packages to the same weights. Layouts:
   flax Conv kernel (kh, kw, in, out)  -> torch Conv2d (out, in, kh, kw)
+  flax grouped Conv (kh, kw, in/g, out) -> torch Conv2d groups=g
+                                         (out, in/g, kh, kw)
   flax Dense kernel (in, out)         -> torch Conv1d k=1 (out, in, 1)
   flax Dense kernel (in, out)         -> torch Linear (out, in)
   flax q_proj / k_proj / v_proj       -> torch in_proj_weight / in_proj_bias
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .hourglass import HGConfig, HGFilter
 from .sifnet import SIFNet, SIFNetConfig
 from .transformer import MultiheadSelfAttention
 
@@ -70,17 +73,15 @@ def _flax_path(module_path: str) -> list:
     return out
 
 
-def sifnet_state_dict_from_flax(params: dict, cfg: SIFNetConfig) -> dict:
-    """The JAX package's flax SIF-Net params ({"params": ...} or the inner
-    tree; arrays as numpy) -> the port's state_dict (CPU float32), for
-    every variant cfg names (chore, chore-triplane, chore-triplane-vis;
-    shared or per-view triplane encoders). Any tree of the params' shape
-    converts, gradients included."""
+def module_state_dict_from_flax(model: nn.Module, params: dict) -> dict:
+    """The flax params ({"params": ...} or the inner tree; arrays as
+    numpy) of the JAX module that `model` ports -> `model`'s state_dict
+    (CPU float32), matched by module path (_flax_path). Every tensor's
+    shape is checked against the model's, grouped convs included."""
     tree = params.get("params", params)
-    model = SIFNet(cfg)
     modules = dict(model.named_modules(remove_duplicate=False))
     sd = {}
-    for key in model.state_dict():
+    for key, want in model.state_dict().items():
         mod_path, leaf = key.rsplit(".", 1)
         mod = modules[mod_path]
         node = tree
@@ -94,8 +95,25 @@ def sifnet_state_dict_from_flax(params: dict, cfg: SIFNetConfig) -> dict:
             w = np.transpose(np.asarray(node["kernel"]), (3, 2, 0, 1))
         else:  # Conv1d head layer from a Dense kernel
             w = np.asarray(node["kernel"]).T[..., None]
+        if tuple(np.shape(w)) != tuple(want.shape):
+            raise ValueError(f"{key}: flax gives {tuple(np.shape(w))}, the "
+                             f"port's module has {tuple(want.shape)}")
         sd[key] = torch.from_numpy(np.array(w, np.float32))
     return sd
+
+
+def sifnet_state_dict_from_flax(params: dict, cfg: SIFNetConfig) -> dict:
+    """The JAX package's flax SIF-Net params -> the port's state_dict, for
+    every variant cfg names (chore, chore-triplane, chore-triplane-vis;
+    shared or per-view triplane encoders). Any tree of the params' shape
+    converts, gradients included."""
+    return module_state_dict_from_flax(SIFNet(cfg), params)
+
+
+def hgfilter_state_dict_from_flax(params: dict, cfg: HGConfig) -> dict:
+    """The JAX package's flax HGFilter params (cfg.gconv: the
+    HGFilterGConv variant) -> the port's HGFilter state_dict."""
+    return module_state_dict_from_flax(HGFilter(cfg), params)
 
 
 def _t(x, transpose=False) -> torch.Tensor:

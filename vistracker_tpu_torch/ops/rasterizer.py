@@ -8,7 +8,9 @@ runs every view through the coverage kernel (ops/coverage.py, kernel K1);
 `rasterize_mask` is the plain dense formulation kept as a reference, and
 `soft_silhouette` the plain dense differentiable silhouette that the
 stage-6 kernel path (ops/coverage.py:soft_silhouette_batch) is tested
-against.
+against. `render_triplane_masks` is the per-frame form of the stage-3
+render over `rasterize_mask`; it equals `render_triplane_masks_batch`
+frame by frame.
 """
 from __future__ import annotations
 
@@ -110,6 +112,25 @@ def soft_silhouette(v2d: torch.Tensor, faces: torch.Tensor, size: int = 256,
         p = torch.where(nondeg[s:s + chunk, None], p, torch.zeros_like(p))
         sil = torch.maximum(sil, p.amax(0))
     return sil.reshape(size, size)
+
+
+def triplane_ndc(verts: torch.Tensor,
+                 body_center: torch.Tensor) -> torch.Tensor:
+    """(V, 3) camera-frame verts, (3,) body center -> (3, V, 2) NDC on
+    the right/back/top planes, the convention of the SIF-Net query path
+    (core/camera.py:triplane_project)."""
+    from ..core.camera import triplane_project
+    return triplane_project(verts[None], body_center[None])[0]
+
+
+def render_triplane_masks(verts: torch.Tensor, faces: torch.Tensor,
+                          body_center: torch.Tensor,
+                          size: int = 512) -> torch.Tensor:
+    """One frame's stage-3 triplane masks through the plain dense
+    rasterizer: (size, size, 3) float {0, 1}, channels right/back/top."""
+    ndc = triplane_ndc(verts, body_center)
+    return torch.stack([rasterize_mask(ndc[i], faces, size)
+                        for i in range(3)], -1)
 
 
 def render_triplane_masks_batch(verts: torch.Tensor, faces: torch.Tensor,
