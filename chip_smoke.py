@@ -144,7 +144,19 @@ Phases (any failure exits non-zero):
      x B = 4 sharing the card (gloo) against the one-process step at B =
      8 from the same weights and batch (check_ddp_step);
  20. every helper of parallel/mesh.py in a world-1 NCCL group on the card;
- 21. a {"kernels": [...]} line, the nvidia-smi name/power-limit line and,
+ 21. the fixture accuracy harness, scripts/run_fixture_eval_torch.py, in
+     this process through its run_phase over its own folder (HARNESS: 8
+     frames at raster 512, net size 256, one chunk, 10 epochs of the tiny
+     SIF-Net; the SmoothNet and HVOP-Net epochs and `track`'s budgets at
+     their defaults): every phase's seconds, peak GiB and launch counts,
+     set to 0 before it; K1 hard must launch in train-sif and track, K1
+     soft, K2 and K3 in track, K4 in eval; the SIF-Net's validation loss
+     must fall from the untrained net's, the W1 and W300 errors be finite
+     (W1 smpl_v2v and obj_v2v printed); then `render --out x.mp4` over
+     phase 11's fixture with cv2 blocked, its boxes walked (mp4_walk:
+     ftyp, moov, mdat; one I-VOP sample a frame) and the encoder's ms a
+     frame (run_harness_path);
+ 22. a {"kernels": [...]} line, the nvidia-smi name/power-limit line and,
      last, {"ok": true, "device": {...}}.
 The main path (phase 9) and phases 18-20 run first, right after the
 builds, while the process holds little on the card. --sensitivity
@@ -158,6 +170,7 @@ Scratch files go to build/chip_smoke/ next to this script. Imports no JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -1767,6 +1780,97 @@ def gif_frames(path: str):
             raise ValueError(f"{path}: unknown GIF block 0x{kind:02x}")
 
 
+MP4_CONTAINERS = ("moov", "trak", "mdia", "minf", "stbl", "dinf")
+
+
+def mp4_walk(path: str) -> dict:
+    """Walk an .mp4's boxes without decoding: {"top": the top-level box
+    types in order, "width"/"height" (tkhd), "fps" (mdhd timescale over
+    the stts delta), "dsi": the esds DecoderSpecificInfo, "sizes" (stsz),
+    "offsets": each sample's file offset (stco chunks split by stsc),
+    "starts": each sample's first 4 bytes}. Raises ValueError on a box
+    that overruns its parent."""
+    import struct
+
+    with open(path, "rb") as f:
+        data = f.read()
+    boxes = {}
+
+    def walk(start, end, prefix):
+        types, pos = [], start
+        while pos < end:
+            if pos + 8 > end:
+                raise ValueError(f"{path}: truncated box at {pos}")
+            size, kind = struct.unpack(">I4s", data[pos:pos + 8])
+            kind = kind.decode("latin-1")
+            if size < 8 or pos + size > end:
+                raise ValueError(f"{path}: box {kind!r} at {pos} overruns")
+            types.append(kind)
+            boxes.setdefault(prefix + kind, (pos + 8, pos + size))
+            if kind in MP4_CONTAINERS:
+                walk(pos + 8, pos + size, prefix + kind + "/")
+            pos += size
+        return types
+
+    top = walk(0, len(data), "")
+    stbl = "moov/trak/mdia/minf/stbl/"
+
+    def body(name):
+        if stbl + name not in boxes and name not in boxes:
+            raise ValueError(f"{path}: no {name} box")
+        return boxes.get(stbl + name, boxes.get(name))
+
+    def u32s(name, skip, count_at):
+        lo, _ = body(name)
+        n = struct.unpack(">I", data[lo + count_at:lo + count_at + 4])[0]
+        at = lo + skip
+        return list(struct.unpack(f">{n}I", data[at:at + 4 * n]))
+
+    lo, _ = boxes["moov/trak/tkhd"]
+    width, height = (v >> 16 for v in struct.unpack(
+        ">II", data[lo + 76:lo + 84]))
+    lo, _ = boxes["moov/trak/mdia/mdhd"]
+    timescale = struct.unpack(">I", data[lo + 12:lo + 16])[0]
+    lo, _ = body("stts")
+    delta = struct.unpack(">I", data[lo + 12:lo + 16])[0]
+    sizes = u32s("stsz", 12, 8)
+    chunks = u32s("stco", 8, 4)
+    lo, _ = body("stsc")
+    n = struct.unpack(">I", data[lo + 4:lo + 8])[0]
+    runs = [struct.unpack(">III", data[lo + 8 + 12 * i:lo + 20 + 12 * i])
+            for i in range(n)]
+    offsets = []
+    for c, at in enumerate(chunks, 1):   # samples a chunk from stsc
+        per = [spc for first, spc, _ in runs if first <= c][-1]
+        for _ in range(per):
+            offsets.append(at)
+            at += sizes[len(offsets) - 1]
+    # the sample entry: 8 + 78 bytes before its esds box
+    lo, hi = body("stsd")
+    esds = data.index(b"esds", lo) + 4 + 4   # past the type and version
+    pos, dsi = esds, None
+    while pos < hi and dsi is None:
+        tag, pos = data[pos], pos + 1
+        length = 0
+        while True:
+            b, pos = data[pos], pos + 1
+            length = (length << 7) | (b & 0x7F)
+            if not b & 0x80:
+                break
+        if tag == 0x03:
+            pos += 3                          # ES_ID, flags
+        elif tag == 0x04:
+            pos += 13                         # object type ... avgBitrate
+        elif tag == 0x05:
+            dsi = data[pos:pos + length]
+        else:
+            pos += length
+    return {"top": top, "width": width, "height": height,
+            "fps": timescale / delta, "dsi": dsi, "sizes": sizes,
+            "offsets": offsets,
+            "starts": [data[o:o + 4] for o in offsets]}
+
+
 def pack_in_contact(gt_pack: str, model_pkl: str, template: str, out: str,
                     gap: float = 0.01) -> str:
     """A copy of a GT pack (axis-angle object rotations) with the object
@@ -2358,8 +2462,6 @@ def run_training_cli(fx: dict, samples=20000, size=512, batch=4,
     HVOP-Net trainers. The first K1 launch of train-sifnet --synthetic
     and the first downstream chamfer of train-infiller are held against
     their plain versions on the inputs those runs gave them."""
-    import contextlib
-
     import torch
     from vistracker_tpu_torch.cli import main as cli
     from vistracker_tpu_torch.cli import real_track as rt
@@ -2982,6 +3084,171 @@ def check_nccl_helpers():
         raise SystemExit(f"NCCL helpers: {checks}")
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the fixture accuracy harness, then an .mp4 without cv2
+# ---------------------------------------------------------------------------
+
+# scripts/run_fixture_eval_torch.py's options for phase 21: the JAX
+# defaults but 8 frames in one chunk and 10 SIF-Net epochs
+HARNESS = ("--frames", "8", "--raster", "512", "--net-size", "256",
+           "--crop-size", "1200", "--chunk-size", "8", "--sif-epochs", "10",
+           "--net-preset", "tiny")
+# the kernels each harness phase must launch
+HARNESS_LAUNCHES = {"train-sif": ("max_logit_fwd",),
+                    "track": ("max_logit_fwd", "max_logit_fwd_soft",
+                              "max_logit_bwd", "label_nn"),
+                    "eval": ("nn_min_sqdist",)}
+
+
+def harness_module():
+    """scripts/run_fixture_eval_torch.py as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "run_fixture_eval_torch",
+        os.path.join(ROOT, "scripts", "run_fixture_eval_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_harness_path(fx: dict, argv=HARNESS, device="cuda",
+                     render_size=256) -> dict:
+    """Phase 21: scripts/run_fixture_eval_torch.py's phases in this
+    process through its run_phase (generate, train-sif, train-sn,
+    train-inf, track, eval) over build/chip_smoke/harness, each with the
+    launch counts set to 0 before and read after, its seconds and peak
+    device memory: K1 hard must launch in train-sif and in track, K1
+    soft, K2 and K3 in track, K4 in eval; the SIF-Net's validation loss
+    must fall from the untrained net's (taken over the batches the loop's
+    validation reads, before the first step); the W1 and W300 errors must
+    be finite. Then `render --out x.mp4` over phase 11's fixture (its
+    track pack beside its GT pack) with cv2 blocked: the box walk must
+    find ftyp, moov, mdat, one sample a frame, each an I-VOP (00 00 01
+    B6); the encoder's ms a frame, its build apart. Returns {phase:
+    {seconds, peak_gib, launches}, "report": the eval report, "mp4":
+    {...}}."""
+    import torch
+    from vistracker_tpu_torch.cli.main import main as cli_main
+    from vistracker_tpu_torch.data import mp4 as mp4_mod
+    from vistracker_tpu_torch.fit import trainer_loop
+
+    rf = harness_module()
+    root = os.path.join(WORK, "harness")
+    shutil.rmtree(root, ignore_errors=True)   # no resume from a past run
+    args = rf.default_results(rf.build_parser().parse_args([
+        *argv, "--out", root, "--device", device,
+        "--results", os.path.join(root, "fixture_eval.json"),
+        "--heldout-results", os.path.join(root, "fixture_eval_ho.json")]))
+    on_card = device != "cpu"
+    counters = LaunchCounts()
+    real_loop = trainer_loop.train_loop
+    val_start = []
+
+    def loop_val_first(state, step_fn, train_loader, val_loader=None,
+                       val_loss_fn=None, cfg=None, to_device=None, **kw):
+        losses = []
+        with torch.no_grad():
+            for bi, batch in enumerate(val_loader):
+                if bi >= cfg.max_val_batches:
+                    break
+                losses.append(float(val_loss_fn(state, to_device(batch))))
+        val_start.append(float(np.mean(losses)))
+        return real_loop(state, step_fn, train_loader, val_loader=val_loader,
+                         val_loss_fn=val_loss_fn, cfg=cfg,
+                         to_device=to_device, **kw)
+
+    rows, report = {}, None
+    for phase in rf.PHASES:
+        args.phase = phase
+        counters.write(dict.fromkeys(counters.read(), 0))
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with (mock.patch.object(trainer_loop, "train_loop", loop_val_first)
+              if phase == "train-sif" else contextlib.nullcontext()):
+            out = rf.run_phase(args)
+        if on_card:
+            torch.cuda.synchronize()
+        rows[phase] = dict(
+            seconds=time.perf_counter() - t0,
+            peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                      if on_card else 0.0),
+            launches=counters.read())
+        print(f"harness {phase}: {rows[phase]['seconds']:.3f} s, peak "
+              f"{rows[phase]['peak_gib']:.2f} GiB, launches "
+              f"{json.dumps(rows[phase]['launches'])}")
+        if phase == "eval":
+            report = out
+    for phase, names in HARNESS_LAUNCHES.items():
+        check_launched(f"harness {phase}", rows[phase]["launches"], names)
+    vals = [r["val_loss"] for r in _metrics(os.path.join(root, "sifnet"))
+            if "val_loss" in r]
+    if not (len(val_start) == 1 and vals and np.isfinite(vals).all()
+            and vals[-1] < val_start[0]):
+        raise SystemExit("harness: the SIF-Net validation loss did not fall "
+                         f"from the untrained net's {val_start[:1]}: {vals}")
+    keys = ("smpl_v2v", "obj_v2v", "smpl_chamf", "obj_chamf")
+    errs = {w: {k: report[w][k]["mean"] for k in keys}
+            for w in ("W1_chore_protocol", "W300_video_protocol")}
+    if not np.isfinite([list(e.values()) for e in errs.values()]).all():
+        raise SystemExit(f"harness eval: non-finite errors {errs}")
+    total = sum(r["seconds"] for r in rows.values())
+    print(f"harness ({' '.join(argv)}): {total:.3f} s in all; SIF-Net "
+          f"validation loss {val_start[0]:.6g} untrained -> {vals[-1]:.6g}; "
+          f"W1 smpl_v2v {errs['W1_chore_protocol']['smpl_v2v']:.4f} cm, "
+          f"obj_v2v {errs['W1_chore_protocol']['obj_v2v']:.4f} cm; W300 "
+          + json.dumps(errs["W300_video_protocol"]))
+
+    # `render --out x.mp4` with cv2 blocked
+    template = os.path.join(fx["objects_root"], "boxmedium", "boxmedium.ply")
+    out = os.path.join(root, "render", "side_by_side.mp4")
+    enc, real_write = [], mp4_mod.write_mp4
+
+    def timed_write(frames, path, fps):
+        t0 = time.perf_counter()
+        path = real_write(frames, path, fps)
+        enc.append((time.perf_counter() - t0, len(frames)))
+        return path
+
+    t0 = time.perf_counter()
+    mp4_mod._lib()           # its g++ build at first use, not in the timing
+    build_s = time.perf_counter() - t0
+    saved = sys.modules.get("cv2", "absent")
+    sys.modules["cv2"] = None
+    try:
+        with mock.patch.object(mp4_mod, "write_mp4", timed_write):
+            cli_main(["render", "--recon", fx["track_pack"], "--recon2",
+                      fx["gt_pack"], "--template", template, "--smpl-model",
+                      fx["model_pkl"], "--size", str(render_size), "--out",
+                      out, "--device", device])
+    finally:
+        if saved == "absent":
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved
+    T = len(fx["occ_ratios"])
+    walk = mp4_walk(out)
+    if walk["top"] != ["ftyp", "moov", "mdat"] or len(walk["sizes"]) != T \
+            or walk["starts"] != [b"\x00\x00\x01\xb6"] * T \
+            or (walk["width"], walk["height"]) != (2 * render_size,
+                                                   render_size):
+        raise SystemExit(f"render .mp4: boxes {walk['top']}, "
+                         f"{len(walk['sizes'])} samples starting "
+                         f"{set(walk['starts'])}, {walk['width']} x "
+                         f"{walk['height']} (want ftyp moov mdat, {T} "
+                         f"I-VOPs of {2 * render_size} x {render_size})")
+    enc_ms = 1e3 * sum(t for t, _ in enc) / sum(n for _, n in enc)
+    print(f"render .mp4 without cv2: {T} frames of {2 * render_size} x "
+          f"{render_size}, {os.path.getsize(out)} bytes, boxes "
+          f"{' '.join(walk['top'])}, every sample an I-VOP; encoder "
+          f"{enc_ms:.2f} ms a frame (its g++ build before it "
+          f"{build_s:.2f} s)")
+    return dict(rows, report=report, val_start=val_start[0],
+                val_end=vals[-1], mp4={"ms_per_frame": enc_ms,
+                                       "bytes": os.path.getsize(out)})
+
+
 def check_sensitivity(main_pack: str, frames: int, chunk: int):
     """--sensitivity: the main path again with every keypoint scaled by 1
     + 1e-7, and each packed field's per-frame differences from the first
@@ -3100,6 +3367,7 @@ def main():
     run_training_cli(fx)
     run_render_path(fx, fx["track_pack"])
     check_term_probe()
+    run_harness_path(fx)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if rec["launches"] < 1:

@@ -349,3 +349,76 @@ def test_ddp_phase_on_the_cpu(tmp_path, monkeypatch, capsys):
     chip_smoke.check_ddp_step(B=4, N=300, S=32, preset="tiny", device="cpu")
     out = capsys.readouterr().out
     assert "DDP step, tiny SIF-Net, 2 ranks x B=2" in out
+
+
+def test_harness_phase_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """Phase 21 at toy size on the CPU: scripts/run_fixture_eval_torch.py's
+    phases in this process (4 frames at raster 64, net size 32, one
+    chunk; the stage-1 and stage-6 fits cut to one Adam step an iteration
+    and one iteration a phase, 32^2 silhouettes, a small harvest, one
+    HVOP-Net epoch, 300 chamfer samples), the
+    SIF-Net validation check and the prints; the CPU launches no kernel,
+    so the launch checks are handed the counts and must see every name.
+    Then `render --out x.mp4` with cv2 blocked over a 2-frame fixture and
+    the box walk."""
+    import functools
+    import sys
+
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+    from test_torch_track import GEN_KW, SMALL_FUNNEL
+    from vistracker_tpu_torch.data.fixture import generate_fixture_sequence
+    from vistracker_tpu_torch.data.packed import load_packed, save_packed
+    from vistracker_tpu_torch.eval import evaluator
+    from vistracker_tpu_torch.fit import generator, joint, smplt
+
+    rf = chip_smoke.harness_module()
+    monkeypatch.setattr(rf, "train_infiller",
+                        functools.partial(rf.train_infiller, epochs=1))
+    monkeypatch.setattr(chip_smoke, "harness_module", lambda: rf)
+    monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path / "work"))
+    fit, jfit = smplt.SMPLTFitConfig, joint.JointFitConfig
+    monkeypatch.setattr(smplt, "SMPLTFitConfig", lambda *a, **k: fit(
+        global_iters=1, max_iters=1))
+    monkeypatch.setattr(joint, "JointFitConfig", functools.partial(
+        jfit, iter_betas=1, iter_pose=1, iter_kpts=1, smpl_max_iter=1,
+        iter_obj=1, iter_sil=1, joint_max_iter=1, steps_per_iter=1,
+        sil_size=32))
+    monkeypatch.setattr(generator, "GeneratorConfig", functools.partial(
+        generator.GeneratorConfig, num_rounds=1, num_steps=2,
+        samples_per_round=512, **GEN_KW))
+    monkeypatch.setattr(generator, "FUNNEL_DEFAULT", SMALL_FUNNEL)
+    chamfer_error = evaluator.chamfer_error
+    monkeypatch.setattr(evaluator, "chamfer_error", lambda *a, **k:
+                        chamfer_error(*a[:4], 300, **k))
+    seen = {}
+    monkeypatch.setattr(chip_smoke, "check_launched",
+                        lambda label, launches, names:
+                        seen.setdefault(label, set(names) & set(launches)))
+
+    fx = generate_fixture_sequence(str(tmp_path / "fx"), T=2, raster=64,
+                                   device="cpu")
+    gt = load_packed(fx["gt_pack"])
+    rot = Rotation.from_rotvec(np.asarray(gt["obj_angles"])).as_matrix()
+    track = str(tmp_path / "track.pkl")
+    save_packed(track, {**gt, "obj_angles": rot.transpose(0, 2, 1)
+                        .astype(np.float32)})
+    cv2_before = sys.modules.get("cv2", "absent")
+    res = chip_smoke.run_harness_path(
+        dict(fx, track_pack=track),
+        argv=("--frames", "4", "--raster", "64", "--net-size", "32",
+              "--crop-size", "256", "--chunk-size", "4", "--sif-epochs", "10",
+              "--sif-samples", "64", "--net-preset", "tiny"),
+        device="cpu", render_size=32)
+    assert sys.modules.get("cv2", "absent") is cv2_before
+    assert seen == {f"harness {p}": set(n)
+                    for p, n in chip_smoke.HARNESS_LAUNCHES.items()}
+    assert set(res) >= {*rf.PHASES, "report", "mp4"}
+    assert res["val_end"] < res["val_start"]
+    assert res["report"]["frames"] == 4
+    out = capsys.readouterr().out
+    for needle in ("harness generate: ", "harness train-sif: ",
+                   "harness eval: ", "SIF-Net validation loss",
+                   "W1 smpl_v2v", "render .mp4 without cv2: 2 frames of "
+                   "64 x 32", "boxes ftyp moov mdat, every sample an I-VOP"):
+        assert needle in out, needle

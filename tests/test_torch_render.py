@@ -254,40 +254,42 @@ def test_gif_median_cut_error_on_large_frames(tmp_path):
     assert err.max() <= GIF_WORST and err.mean() <= GIF_MEAN
 
 
-def test_mp4_refused_without_cv2_and_written_with_it(tmp_path):
-    """Without cv2 (simulated with sys.modules["cv2"] = None) an .mp4 is
-    refused by name, by save_video and by `render` before it loads
-    anything; with cv2 the file has 3 frames, as tests/test_viz.py
-    checks for JAX."""
+def test_mp4_written_without_cv2_by_save_video_and_render(packs, tmp_path):
+    """With cv2 blocked (sys.modules["cv2"] = None, as on the machine with
+    the card) save_video and `render` write .mp4 files through
+    data/mp4.py; cv2, which this image has, reads them back: 3 frames of
+    64 x 64, and render's 2 frames of 64 x 128 (GT | recon) and its top
+    view. tests/test_torch_mp4.py holds the pixels."""
+    import cv2
+    fx = packs["fx"]
+    np.save(tmp_path / "frames.npy",
+            np.random.RandomState(1).rand(3, 64, 64, 3).astype(np.float32))
+    a, b = str(tmp_path / "a.mp4"), str(tmp_path / "r" / "b.mp4")
+    argv = ["render", "--recon", packs["recon"], "--recon2", packs["contact"],
+            "--template", packs["template"], "--smpl-model", fx["model_pkl"],
+            "--top", "--size", "64", "--out", b, "--device", "cpu"]
     code = ("import sys, numpy as np; sys.modules['cv2'] = None\n"
             "from vistracker_tpu_torch.render.viz import save_video\n"
             "from vistracker_tpu_torch.cli.main import main\n"
-            "for call in (lambda: save_video(np.zeros((2, 8, 8, 3)), "
-            f"{str(tmp_path / 'a.mp4')!r}),\n"
-            "             lambda: main(['render', '--recon', 'missing.pkl', "
-            "'--template', 'missing.ply', '--smpl-model', 'missing.pkl', "
-            f"'--out', {str(tmp_path / 'b.mp4')!r}, '--device', 'cpu'])):\n"
-            "    try:\n"
-            "        call()\n"
-            "    except SystemExit as e:\n"
-            "        print('REFUSED', e)\n")
+            f"print(save_video(np.load({str(tmp_path / 'frames.npy')!r}), "
+            f"{a!r}, fps=5))\n"
+            f"main({json.dumps(argv)})\n"
+            "assert not [m for m in sys.modules if m.startswith('cv2.')]\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
-    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("REFUSED")]
-    assert len(lines) == 2, res.stdout + res.stderr
-    for ln in lines:
-        assert "cv2" in ln and "ROADMAP.md, Queue 1 item 8" in ln
-    assert not os.listdir(tmp_path)
-
-    import cv2
-    frames = np.random.RandomState(1).rand(3, 64, 64, 3).astype(np.float32)
-    out = tviz.save_video(frames, str(tmp_path / "vid.mp4"), fps=5)
-    assert out.endswith(".mp4") and os.path.getsize(out) > 100
-    cap = cv2.VideoCapture(out)
-    assert cap.isOpened()
-    assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 3
-    cap.release()
+    for path, want in ((a, (3, 64, 64)), (b, (2, 64, 128)),
+                       (str(tmp_path / "r" / "b_top.mp4"), (2, 64, 128))):
+        cap = cv2.VideoCapture(path)
+        assert cap.isOpened(), path
+        got = (int(cap.get(cv2.CAP_PROP_FRAME_COUNT)),
+               int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)),
+               int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)))
+        n_read = 0
+        while cap.read()[0]:
+            n_read += 1
+        cap.release()
+        assert got == want and n_read == want[0], (path, got, n_read)
 
 
 # ---------------------------------------------------------------------------

@@ -255,8 +255,14 @@ def test_memory_reader_serves_the_folder(tmp_path, rng):
 
 def test_import_leaves_jax_out():
     """The port imports no JAX: checked in a fresh interpreter, since this
-    test process has JAX loaded already."""
-    code = ("import sys, vistracker_tpu_torch, vistracker_tpu_torch.cli.main,"
+    test process has JAX loaded already. The scripts of the port's fixture
+    harness are imported from scripts/ too."""
+    code = ("import sys; sys.path.insert(0, 'scripts');"
+            " import run_fixture_eval_torch, prewarm_sample_cache_torch,"
+            " diagnose_fixture_torch, ablate_stage6_terms_torch,"
+            " select_seed_by_val_torch, b_ladder_torch;"
+            " import vistracker_tpu_torch, vistracker_tpu_torch.cli.main,"
+            " vistracker_tpu_torch.data.mp4,"
             " vistracker_tpu_torch.cli.real_track,"
             " vistracker_tpu_torch.ops.coverage,"
             " vistracker_tpu_torch.models.weights,"

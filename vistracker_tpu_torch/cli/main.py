@@ -49,8 +49,8 @@ networks of the JAX package's narrow synthetic widths (`--render` adds
 the GT | recon side-by-side GIF); `track --seq` runs it on a
 BEHAVE-layout sequence folder (cli/real_track.py).
 
-`render` draws packed reconstructions (render/viz.py) as a GIF (no PIL)
-or, where cv2 is installed, an .mp4.
+`render` draws packed reconstructions (render/viz.py) as an .mp4 (no
+cv2) or a GIF (no PIL).
 
 `boundary-sample` writes the per-frame boundary-sample npz files that
 `train-sifnet --offline-data` trains from; the three trainers write the
@@ -307,8 +307,9 @@ def build_parser() -> argparse.ArgumentParser:
     rd.add_argument("--template", required=True, help="object template ply")
     rd.add_argument("--smpl-model", required=True)
     rd.add_argument("--out", default="render_out/side_by_side.mp4",
-                    help=".mp4 -> FFMPEG video through cv2 (refused where "
-                         "cv2 is not installed); other extensions -> GIF")
+                    help=".mp4 -> MPEG-4 Part 2 video (mp4v, as cv2 "
+                         "writes it; data/mp4.py, no cv2 needed); other "
+                         "extensions -> GIF")
     rd.add_argument("--top", action="store_true",
                     help="also write a top-down view video with "
                          "checkerboard ground (*_top.<ext>)")
@@ -613,7 +614,7 @@ def run_synthetic_track(args, weights: dict | None = None,
 def run_render(args) -> list:
     """`render`: side-by-side mesh rendering of packed reconstructions
     (the reference's render/render_side_comp.py and render_recon.py
-    roles) as a GIF, or an .mp4 where cv2 is installed, with an optional
+    roles) as an .mp4 or a GIF, with an optional
     top-down view over a checkerboard ground (render_recon.py:173-183,
     213-225) and per-part contact spheres (nr_utils.py:
     get_contact_spheres). Renders on the device; prints and returns the
@@ -624,14 +625,11 @@ def run_render(args) -> list:
     from ..core.smpl import load_smpl_pkl
     from ..data.packed import gt_obj_verts, load_packed, recon_obj_verts
     from ..eval.evaluator import smpl_verts_from_packed
-    from ..render.viz import (MP4_REFUSAL, contact_spheres, mp4_writable,
-                              render_meshes_perspective, render_top_view,
-                              save_video, side_by_side)
+    from ..render.viz import (contact_spheres, render_meshes_perspective,
+                              render_top_view, save_video, side_by_side)
     from ..utils.mesh import decimate_faces, load_ply
     from .real_track import resolve_device
 
-    if args.out.lower().endswith(".mp4") and not mp4_writable():
-        raise SystemExit(MP4_REFUSAL)
     device = resolve_device(args.device)
     model = load_smpl_pkl(args.smpl_model, device)
     temp_v, temp_f = load_ply(args.template)

@@ -10,8 +10,8 @@ comparison is a strict <, so the lowest face index wins every tie and the
 result does not depend on the chunk. `render_meshes_perspective` and
 `render_top_view` composite several meshes through it on a device of the
 caller's choosing. `save_video` writes a GIF through data/gif.py (no
-PIL) or, for `.mp4`, through cv2, imported only there; without cv2 an
-`.mp4` is refused by name (ROADMAP.md, Queue 1 item 8).
+PIL) or, for `.mp4`, the JAX writer's MPEG-4 Part 2 (`mp4v`) stream
+through data/mp4.py (no cv2).
 """
 from __future__ import annotations
 
@@ -140,43 +140,17 @@ def side_by_side(frames_left: np.ndarray,
     return np.concatenate([frames_left, frames_right], axis=2)
 
 
-MP4_REFUSAL = ("writing .mp4 needs cv2, which is not installed; an mp4 "
-               "writer that needs no cv2 is not in the port yet "
-               "(ROADMAP.md, Queue 1 item 8); write a .gif instead")
-
-
-def mp4_writable() -> bool:
-    """Can `save_video` write an .mp4 here (is cv2 importable)?"""
-    try:
-        import cv2  # noqa: F401
-    except ImportError:
-        return False
-    return True
-
-
 def save_video(frames: np.ndarray, path: str, fps: int = 15) -> str:
     """Write (T, H, W, 3) float frames in [0, 1], turned to uint8 as
-    (clip * 255) truncated: `.mp4` paths through cv2's FFMPEG writer (the
-    reference's imageio/FFMPEG role), any other extension as an animated
-    GIF (data/gif.py) showing each frame int(1000 / fps) ms, looping.
-    Without cv2 an .mp4 path raises SystemExit before anything is
-    written."""
-    mp4 = path.lower().endswith(".mp4")
-    if mp4 and not mp4_writable():
-        raise SystemExit(MP4_REFUSAL)
+    (clip * 255) truncated: `.mp4` paths as MPEG-4 Part 2 video in an
+    `mp4v` track (data/mp4.py, the codec of the JAX package's cv2
+    writer) at `fps`, any other extension as an animated GIF
+    (data/gif.py) showing each frame int(1000 / fps) ms, looping."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     rgb = [(np.clip(f, 0, 1) * 255).astype(np.uint8) for f in frames]
-    if mp4:
-        import cv2
-        h, w = rgb[0].shape[:2]
-        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"),
-                                 fps, (w, h))
-        if not writer.isOpened():
-            raise RuntimeError(f"cv2 VideoWriter failed for {path}")
-        for f in rgb:
-            writer.write(f[:, :, ::-1])  # cv2 wants BGR
-        writer.release()
-        return path
+    if path.lower().endswith(".mp4"):
+        from ..data.mp4 import write_mp4
+        return write_mp4(rgb, path, fps)
     from ..data.gif import save_gif
     return save_gif(rgb, path, duration_ms=int(1000 / fps), loop=0)
 
