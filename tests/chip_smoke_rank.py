@@ -47,6 +47,10 @@ def cut_budgets():
     generator.GeneratorConfig = functools.partial(generator.GeneratorConfig,
                                                   **BUDGETS["generator"])
     generator.FUNNEL_DEFAULT = BUDGETS["funnel"]
+    # shard_rank builds its configs at chip_smoke's main-path budgets
+    chip_smoke.MAIN_FIT = BUDGETS["smplt"]
+    chip_smoke.MAIN_JOINT = {k: BUDGETS["joint"][k]
+                             for k in chip_smoke.MAIN_JOINT}
     coverage.max_logit_fwd = counting(coverage.max_logit_fwd)
     coverage.max_logit_bwd = counting(coverage.max_logit_bwd)
     label_nn.label_nn_fwd = counting(label_nn.label_nn_fwd)

@@ -3,6 +3,7 @@ card's synchronize and the three timers are patched out, so every wrapper
 runs its plain version and each phase's checks (bit-equality, the K2
 tolerance, run-to-run equality, the adversarial K3 rows, the all-dead K2
 case) and its record run end to end."""
+import re
 from unittest import mock
 
 import pytest
@@ -294,6 +295,55 @@ def test_term_probe_phase_on_the_cpu(capsys):
     assert "term_probe (4 frames, 2,500-face object, 4 views at 64^2" in out
     for name in ("contact", "mask", "object", "ocent", "otemp", "ovtemp"):
         assert f"{name} 0.0e+00 / 0.0e+00" in out, name
+    # the phase's clock line, its last: number, name, seconds, and the
+    # seconds since the script started
+    last = out.strip().splitlines()[-1]
+    got = re.fullmatch(r"clock: phase 17 \(term probe\) ([0-9.]+) s, "
+                       r"([0-9.]+) s since the start", last)
+    assert got, last
+    assert 0 < float(got[1]) <= float(got[2])
+
+
+def test_main_path_and_ranks_track_at_the_main_budgets(tmp_path,
+                                                        monkeypatch):
+    """The main path, its --sensitivity rerun and phase 18's ranks
+    (shard_rank) build `track`'s SMPLTFitConfig and JointFitConfig at
+    MAIN_FIT / MAIN_JOINT, so both sides of phase 18 run the same
+    budgets, a quarter of the release's rounded up. run_track records
+    the configs `track` would build and stops: no `track` runs."""
+    import math
+    import types
+
+    import numpy as np
+    from vistracker_tpu_torch.fit import joint, smplt
+
+    class Stop(Exception):
+        pass
+
+    seen = []
+
+    def configs_then_stop(fab, device, out, extra=(), **kw):
+        seen.append((smplt.SMPLTFitConfig(), joint.JointFitConfig()))
+        raise Stop
+
+    release = (smplt.SMPLTFitConfig(), joint.JointFitConfig())
+    monkeypatch.setattr(chip_smoke, "WORK", str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "run_track", configs_then_stop)
+    monkeypatch.setattr(chip_smoke, "fabricate", lambda *a, **k: (
+        types.SimpleNamespace(kpts=np.ones((32, 25, 3), np.float32)),))
+    monkeypatch.setenv("RANK", "0")
+    for run in (lambda: chip_smoke.run_main_path(32, 16, device="cpu"),
+                lambda: chip_smoke.check_sensitivity("main.pkl", 32, 16),
+                lambda: chip_smoke.shard_rank(32, 16, device="cpu")):
+        with pytest.raises(Stop):
+            run()
+    main = (smplt.SMPLTFitConfig(**chip_smoke.MAIN_FIT),
+            joint.JointFitConfig(**chip_smoke.MAIN_JOINT))
+    assert seen == [main] * 3
+    for cfg, budget in zip(release, (chip_smoke.MAIN_FIT,
+                                     chip_smoke.MAIN_JOINT)):
+        assert budget == {k: math.ceil(getattr(cfg, k) / 4) for k in budget}
+    assert (smplt.SMPLTFitConfig(), joint.JointFitConfig()) == release
 
 
 def test_sharded_track_phase_on_the_cpu(tmp_path, monkeypatch, capsys):
@@ -310,6 +360,7 @@ def test_sharded_track_phase_on_the_cpu(tmp_path, monkeypatch, capsys):
     from vistracker_tpu_torch.fit import generator, joint, smplt
     from vistracker_tpu_torch.ops import coverage, label_nn
     for mod, name in ((smplt, "SMPLTFitConfig"), (joint, "JointFitConfig"),
+                      (chip_smoke, "MAIN_FIT"), (chip_smoke, "MAIN_JOINT"),
                       (generator, "GeneratorConfig"),
                       (generator, "FUNNEL_DEFAULT"),
                       (coverage, "max_logit_fwd"),
