@@ -341,7 +341,8 @@ def test_cli_flags_match_the_jax_track():
     defaults, `--synthetic` and its sizes included. The differences:
     --device is the port's own, standing in for the JAX --cpu,
     --dist-backend picks the torch.distributed backend of a
-    --shard-frames launch, and --sil-backend is not carried over (one
+    --shard-frames launch, --trace-out writes the port's tracer's spans
+    as a Chrome trace, and --sil-backend is not carried over (one
     silhouette path here)."""
     from vistracker_tpu.cli.main import build_parser as jax_parser
     from vistracker_tpu_torch.cli.main import build_parser
@@ -352,10 +353,10 @@ def test_cli_flags_match_the_jax_track():
         return {a.dest: a.default for a in sub.choices["track"]._actions}
 
     port, ref = track_defaults(build_parser()), track_defaults(jax_parser())
-    assert set(port) - set(ref) == {"device", "dist_backend"}
+    assert set(port) - set(ref) == {"device", "dist_backend", "trace_out"}
     assert set(ref) - set(port) == {"cpu", "sil_backend"}
     for k, v in port.items():
-        if k not in ("device", "dist_backend"):
+        if k not in ("device", "dist_backend", "trace_out"):
             assert ref[k] == v, k
     for k in ("synthetic", "frames", "verts", "image_size", "eval_window",
               "render", "objects_root", "infiller_ckpt", "smoothnet_smpl_ckpt",

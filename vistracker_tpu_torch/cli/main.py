@@ -171,6 +171,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="re-run even if the packed output exists")
     tr.add_argument("--neural-only", action="store_true",
                     help="stop after stage 4 and pack the neural outputs")
+    tr.add_argument("--trace-out", default=None,
+                    help="record the tracer's spans and step counters over "
+                         "the call and write them to this Chrome trace "
+                         "file (utils/trace.py); under --shard-frames each "
+                         "rank writes <stem>.rank<r>.json")
 
     ev = sub.add_parser("evaluate", help="windowed eval of packed recon vs GT")
     ev.add_argument("--recon", help="packed recon pkl (single-sequence mode)")
@@ -1188,11 +1193,13 @@ def main(argv=None):
     if args.cmd == "track":
         if not args.synthetic and not args.seq:
             raise SystemExit("track requires --synthetic or --seq")
-        if args.synthetic:
-            run_synthetic_track(args)
-        else:
-            from .real_track import run_real_track
-            run_real_track(args)
+        from ..utils import trace
+        with trace.to_file(args.trace_out):
+            if args.synthetic:
+                run_synthetic_track(args)
+            else:
+                from .real_track import run_real_track
+                run_real_track(args)
     elif args.cmd == "evaluate":
         run_evaluate(args)
     elif args.cmd == "unpack":

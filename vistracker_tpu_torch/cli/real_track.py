@@ -43,6 +43,8 @@ import time
 import numpy as np
 import torch
 
+from ..utils import trace
+
 # Frames per SIF-Net encode call. The encode's peak device memory grows
 # with its batch (release width on an H100: 22.6 GiB at 8 frames, 28.9 GiB
 # at 16, chip_smoke.py) while the cache it leaves is small, so a chunk is
@@ -183,21 +185,23 @@ def run_real_track(args, reader=None) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
 
     def lap(stage, t0):
-        """Charge the time since t0 to `stage` and fold the device's peak
-        allocation since the last call into the stage's (the max over
-        chunks); returns the new t0."""
+        """Charge the time since t0 (time.time_ns()) to `stage`, close
+        the tracer's stage span over that interval, and fold the device's
+        peak allocation since the last call into the stage's (the max
+        over chunks); returns the new t0."""
         if on_gpu:
             torch.cuda.synchronize(device)
             stage_peak[stage] = max(
                 stage_peak[stage],
                 torch.cuda.max_memory_allocated(device) / 2 ** 30)
             torch.cuda.reset_peak_memory_stats(device)
-        now = time.perf_counter()
-        stage_s[stage] += now - t0
+        now = time.time_ns()
+        stage_s[stage] += (now - t0) / 1e9
+        trace.close(stage, t0, now)
         return now
 
     draw_s = 0.0
-    t_start = time.perf_counter()
+    t_start = time.time_ns()
     kid = args.kid
     reader = reader if reader is not None else FrameDataReader(args.seq)
     outfile = os.path.join(args.out, f"recon_{args.save_name}",
@@ -213,6 +217,7 @@ def run_real_track(args, reader=None) -> dict:
           f"{args.start}..{end} of {len(reader)} on {device}")
     neural_only = args.neural_only
 
+    t_load = time.time_ns()
     smpl_model = load_smpl_pkl(args.smpl_model, device)
     landmarks = load_landmarks(args.assets, device)
     body_prior = load_body_prior(args.assets, device)
@@ -235,11 +240,13 @@ def run_real_track(args, reader=None) -> dict:
         gen_mod.sifnet_query_fn(sifnet), gen_mod.GeneratorConfig(
             center_agg="median" if args.robust_centers else "mean",
             funnel=gen_mod.FUNNEL_DEFAULT if args.fast_gen else None))
+    trace.close("models", t_load)
 
     def dev(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
     if not neural_only:
+        t_object = time.time_ns()
         part_labels = part_labels_array(
             load_part_labels(args.assets),
             num_verts=smpl_model.v_template.shape[0])
@@ -294,6 +301,7 @@ def run_real_track(args, reader=None) -> dict:
         opt_obj = joint_mod.make_object_optimizer(
             query_df_step, lambda ctx, p: cam.project_screen(p), jcfg,
             report_iters=True, contact_query_fn=query_fn)
+        trace.close("object", t_object)
     iters_log = {"smpl": [], "joint": []}
 
     smpl_faces = torch.as_tensor(smpl_model.faces, device=device).long()
@@ -318,7 +326,8 @@ def run_real_track(args, reader=None) -> dict:
 
     def whole(sh, x):
         """This rank's rows (a tensor) -> the whole chunk, numpy."""
-        return (x if sh is None else sh.gather_frames(x)).cpu().numpy()
+        with trace.span("to_host"):
+            return (x if sh is None else sh.gather_frames(x)).cpu().numpy()
 
     t0 = lap("setup", t_start)
 
@@ -328,15 +337,22 @@ def run_real_track(args, reader=None) -> dict:
         cheaper than holding every chunk's feature cache across the
         sequence-wide stages."""
         with torch.no_grad():
-            tris = render_triplane_masks_batch(
-                verts, smpl_faces, body_centers, args.net_size).cpu().numpy()
+            with trace.span("render"):
+                tris = render_triplane_masks_batch(
+                    verts, smpl_faces, body_centers, args.net_size)
+            with trace.span("readback"):
+                tris = tris.cpu().numpy()
         t0 = lap("stage3", t0)
         images, ccs = [], []
         for j, idx in enumerate(chunk):
-            img5, cc = prepare_input_crop(
-                reader.get_color(idx, kid), reader.get_mask(idx, kid, "person"),
-                reader.get_mask(idx, kid, "obj"), args.crop_size,
-                args.net_size)
+            with trace.span("frame", {"frame": idx}):
+                with trace.span("read"):
+                    raw = (reader.get_color(idx, kid),
+                           reader.get_mask(idx, kid, "person"),
+                           reader.get_mask(idx, kid, "obj"))
+                with trace.span("crop"):
+                    img5, cc = prepare_input_crop(*raw, args.crop_size,
+                                                  args.net_size)
             images.append(np.concatenate([img5, tris[j]], -1))
             ccs.append(cc)
         return np.stack(images), np.stack(ccs), lap("inputs", t0)
@@ -345,15 +361,16 @@ def run_real_track(args, reader=None) -> dict:
         with torch.no_grad():
             parts = []
             for f0 in range(0, len(images), ENCODE_FRAMES):
-                part = sifnet.encode(dev(images[f0:f0 + ENCODE_FRAMES]))
-                if args.cache_dtype == "bfloat16":
-                    part = cast_cache(part, torch.bfloat16)
+                with trace.span("encode.slice", {"frame": f0}):
+                    part = sifnet.encode(dev(images[f0:f0 + ENCODE_FRAMES]))
+                    if args.cache_dtype == "bfloat16":
+                        part = cast_cache(part, torch.bfloat16)
                 parts.append(part)
             cache = _join_caches(parts)
         return cache, lap("stage4_encode", t0)
 
     def lbs_verts(pose, betas, trans):
-        with torch.no_grad():
+        with torch.no_grad(), trace.span("lbs"):
             return lbs_forward(smpl_model, dev(pose), dev(betas),
                                dev(trans))[0]
 
@@ -373,20 +390,21 @@ def run_real_track(args, reader=None) -> dict:
               f"({len(chunk)} frames)")
         sh, mine = shard_of(chunk)
         kpts, mocap_poses, bbox_centers = [], [], []
-        for idx in mine:
-            # tol 0.1: the fitter's own keypoint threshold
-            kpts.append(reader.get_body_kpts(idx, kid, tol=0.1))
-            mocap_poses.append(reader.get_mocap_params(idx, kid)[0])
-            pm = reader.get_mask(idx, kid, "person")
-            ys, xs = np.nonzero(pm)
-            if len(xs) < 10:  # detector miss: use the image center
-                h, w = pm.shape
-                print(f"[vistracker] warning: empty person mask at frame "
-                      f"{reader.frames[idx]}, using image center")
-                bbox_centers.append([w / 2, h / 2])
-            else:
-                bbox_centers.append([(xs.max() + xs.min()) / 2,
-                                     (ys.max() + ys.min()) / 2])
+        with trace.span("frame_inputs", {"chunk": ci}):
+            for idx in mine:
+                # tol 0.1: the fitter's own keypoint threshold
+                kpts.append(reader.get_body_kpts(idx, kid, tol=0.1))
+                mocap_poses.append(reader.get_mocap_params(idx, kid)[0])
+                pm = reader.get_mask(idx, kid, "person")
+                ys, xs = np.nonzero(pm)
+                if len(xs) < 10:  # detector miss: use the image center
+                    h, w = pm.shape
+                    print(f"[vistracker] warning: empty person mask at "
+                          f"frame {reader.frames[idx]}, using image center")
+                    bbox_centers.append([w / 2, h / 2])
+                else:
+                    bbox_centers.append([(xs.max() + xs.min()) / 2,
+                                         (ys.max() + ys.min()) / 2])
         kpts = dev(np.stack(kpts))
         kpts_all[sl] = whole(sh, kpts)
         betas0 = np.zeros((len(mine), 10), np.float32)
@@ -409,7 +427,8 @@ def run_real_track(args, reader=None) -> dict:
     p2_pose, p2_betas, p2_trans = p1_pose, p1_betas, p1_trans
     if sn_smpl is not None:
         print(f"[vistracker] stage 2: SmoothNet over all {T} frames + refit")
-        sm = smooth_smplt(sn_smpl, p1_pose, p1_betas, p1_trans, window=W)
+        with trace.span("smooth"):
+            sm = smooth_smplt(sn_smpl, p1_pose, p1_betas, p1_trans, window=W)
         p2_pose = np.zeros_like(p1_pose)
         p2_betas = np.zeros_like(p1_betas)
         p2_trans = np.zeros_like(p1_trans)
@@ -503,9 +522,11 @@ def run_real_track(args, reader=None) -> dict:
                 torch.as_tensor(pca_init).expand(T, 3, 3)).numpy()
         rot_real = rot_init.transpose(0, 2, 1)
         if sn_rot is not None:
-            rot_real = smooth_objrot(sn_rot, rot_real, window=W) \
-                .transpose(0, 2, 1)
-        filled = run_infill(smpl_pose, smpl_trans, rot_real, occ_all)
+            with trace.span("smooth"):
+                rot_real = smooth_objrot(sn_rot, rot_real, window=W) \
+                    .transpose(0, 2, 1)
+        with trace.span("infill"):
+            filled = run_infill(smpl_pose, smpl_trans, rot_real, occ_all)
         infilled = filled is not None  # None: too few visible seed frames
         rot_real = filled if infilled else rot_real
         t0 = lap("stage5", t0)
@@ -529,9 +550,10 @@ def run_real_track(args, reader=None) -> dict:
             verts_f = lbs_verts(local(sh, smpl_pose[sl]),
                                 local(sh, smpl_betas[sl]),
                                 local(sh, smpl_trans[sl]))
-            sil = prepare_sil_refs(images[..., 3], images[..., 4], ccs,
-                                   args.crop_size, args.net_size,
-                                   jcfg.sil_size, device=device)
+            with trace.span("sil_refs"):
+                sil = prepare_sil_refs(images[..., 3], images[..., 4], ccs,
+                                       args.crop_size, args.net_size,
+                                       jcfg.sil_size, device=device)
             # obj_s is fixed to 1 (the release uses a single scale)
             r_fin, t_fin, _, it_o = opt_obj(
                 dev(local(sh, rot_real[sl]).transpose(0, 2, 1)),
@@ -555,9 +577,11 @@ def run_real_track(args, reader=None) -> dict:
 
     # ================================ pack =================================
     if lead:
-        save_packed(outfile, packed)
-    lap("pack", t0)
-    dt = time.perf_counter() - t_start
+        with trace.span("save"):
+            save_packed(outfile, packed)
+    t_end = lap("pack", t0)
+    trace.close("track", t_start, t_end)
+    dt = (t_end - t_start) / 1e9
     summary = {"packed": outfile, "frames": T, "seconds": dt, "fps": T / dt,
                "chunk_size": args.chunk_size,
                **{f"iters_{k}_mean": float(np.mean(v))

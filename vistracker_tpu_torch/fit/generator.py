@@ -24,6 +24,8 @@ import time
 
 import torch
 
+from ..utils import trace
+
 
 @dataclasses.dataclass(frozen=True)
 class GeneratorConfig:
@@ -52,7 +54,8 @@ class TorchDraws:
     `seconds` sums the host time of the draws, the device's queued work
     excluded: each draw waits for the stream anyway (the categorical reads
     the logits back, and a pageable host-to-device copy waits for it), so
-    the clock starts after a synchronize."""
+    the clock starts after a synchronize. The tracer's `draw` span covers
+    the same interval."""
 
     def __init__(self, seed: int, device="cpu"):
         self.gen = torch.Generator().manual_seed(int(seed))
@@ -62,9 +65,11 @@ class TorchDraws:
     def _timed(self, draw):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
         out = draw().to(self.device)
-        self.seconds += time.perf_counter() - t0
+        t1 = time.time_ns()
+        self.seconds += (t1 - t0) / 1e9
+        trace.close("draw", t0, t1)
         return out
 
     def uniform(self, shape) -> torch.Tensor:
@@ -223,13 +228,15 @@ def make_generator(query_fn, cfg: GeneratorConfig = GeneratorConfig()):
             draws.uniform((B, cfg.funnel[0][0], 3)), bc, cfg)
         pools = []
         for r, (n_cand, n_keep, steps) in enumerate(cfg.funnel):
-            if n_keep < n_cand:
-                with torch.no_grad():
-                    df0 = df_cheap(cache, samples, cc, bc, df_idx)
-                samples = _take(samples, _top_idx(-df0, n_keep))
-            pools.append(harvest(cache, samples, cc, bc, df_idx, steps))
-            if r + 1 < len(cfg.funnel):
-                samples = resample(pools[-1], bc, cfg.funnel[r + 1][0], draws)
+            with trace.span("harvest.round", {"round": r, "target": df_idx}):
+                if n_keep < n_cand:
+                    with torch.no_grad():
+                        df0 = df_cheap(cache, samples, cc, bc, df_idx)
+                    samples = _take(samples, _top_idx(-df0, n_keep))
+                pools.append(harvest(cache, samples, cc, bc, df_idx, steps))
+                if r + 1 < len(cfg.funnel):
+                    samples = resample(pools[-1], bc, cfg.funnel[r + 1][0],
+                                       draws)
         pool = {k: torch.cat([p[k] for p in pools], 1) for k in pools[0]}
         return finalize(pool, B)
 
@@ -237,10 +244,11 @@ def make_generator(query_fn, cfg: GeneratorConfig = GeneratorConfig()):
         B, n = cc.shape[0], cfg.samples_per_round
         samples = init_box_samples(draws.uniform((B, n, 3)), bc, cfg)
         pools = []
-        for _ in range(cfg.num_rounds):
-            pools.append(harvest(cache, samples, cc, bc, df_idx,
-                                 cfg.num_steps))
-            samples = resample(pools[-1], bc, n, draws)
+        for r in range(cfg.num_rounds):
+            with trace.span("harvest.round", {"round": r, "target": df_idx}):
+                pools.append(harvest(cache, samples, cc, bc, df_idx,
+                                     cfg.num_steps))
+                samples = resample(pools[-1], bc, n, draws)
         pool = {k: torch.cat([p[k] for p in pools], 1) for k in pools[0]}
         return finalize(pool, B)
 

@@ -52,6 +52,7 @@ from ..ops.label_nn import label_nn, label_nn_plan
 from ..ops.sdf_grid import SDFGrid, penetration_loss, sample_sdf
 from ..parallel.mesh import (FrameShard, all_reduce_sum, diff_sq_mean,
                              frame_mean)
+from ..utils import trace
 from .smplt import SMPLTParams
 
 NUM_PARTS = 14
@@ -178,7 +179,7 @@ def init_object_orientation(tgt_axis: torch.Tensor,
 def _adam_phase(loss_fn: Callable, params: dict, lrs: dict, max_iters: int,
                 steps_per_iter: int, decay_fn: Callable,
                 rel_tol: float = 0.0, min_iters: float = -1.0,
-                shard: FrameShard | None = None):
+                shard: FrameShard | None = None, phase: str = "phase"):
     """One optimizer phase: fresh Adam moments, a learning rate per leaf
     (a leaf with rate 0 is frozen: it carries no gradient), up to
     max_iters iterations of steps_per_iter steps, decay_fn(step) passed to
@@ -188,36 +189,46 @@ def _adam_phase(loss_fn: Callable, params: dict, lrs: dict, max_iters: int,
     Sharded, loss_fn gives this rank's share of the loss: the test reads
     the sum over the ranks (the same bits on every rank), and so does the
     returned trace. Returns (params, per-step losses (S,), iterations
-    used)."""
+    used). Traced as joint.phase:<phase>, each step's forward, backward
+    and adam spans under a step span, the steps counted as adam_steps,
+    and the early-stop test's read of the loss as early_stop_sync."""
     leaves = {k: v.detach().clone().requires_grad_(lrs.get(k, 0.0) > 0)
               for k, v in params.items()}
     opt = torch.optim.Adam(
         [{"params": [leaves[k]], "lr": lr} for k, lr in lrs.items()
          if lr > 0], betas=(0.9, 0.999), eps=1e-8)
     losses, prev, iters = [], np.float32(300.0), 0
-    for it in range(max_iters):
-        for k in range(steps_per_iter):
-            opt.zero_grad(set_to_none=True)
-            loss = loss_fn(leaves, decay_fn(it * steps_per_iter + k))
-            loss.backward()
-            opt.step()
-            losses.append(loss.detach())
-        iters = it + 1
-        if rel_tol > 0:
-            last = losses[-1] if shard is None \
-                else all_reduce_sum(losses[-1], shard.d)
-            last = np.float32(last.item())
-            rel = np.abs(prev - last) / np.maximum(np.abs(prev),
-                                                   np.float32(1e-12))
-            done = rel < np.abs(prev) * np.float32(rel_tol) \
-                and it > min_iters
-            prev = last
-            if done:
-                break
-    trace = torch.stack(losses) if losses else torch.zeros(0)
+    with trace.span(f"joint.phase:{phase}"):
+        for it in range(max_iters):
+            for k in range(steps_per_iter):
+                with trace.span("step"):
+                    opt.zero_grad(set_to_none=True)
+                    with trace.span("forward"):
+                        loss = loss_fn(leaves, decay_fn(it * steps_per_iter
+                                                        + k))
+                    with trace.span("backward"):
+                        loss.backward()
+                    with trace.span("adam"):
+                        opt.step()
+                    losses.append(loss.detach())
+                trace.count("adam_steps")
+            iters = it + 1
+            if rel_tol > 0:
+                with trace.span("early_stop_sync"):
+                    last = losses[-1] if shard is None \
+                        else all_reduce_sum(losses[-1], shard.d)
+                    last = np.float32(last.item())
+                rel = np.abs(prev - last) / np.maximum(np.abs(prev),
+                                                       np.float32(1e-12))
+                done = rel < np.abs(prev) * np.float32(rel_tol) \
+                    and it > min_iters
+                prev = last
+                if done:
+                    break
+    loss_trace = torch.stack(losses) if losses else torch.zeros(0)
     if shard is not None:
-        trace = all_reduce_sum(trace, shard.d)
-    return {k: v.detach() for k, v in leaves.items()}, trace, iters
+        loss_trace = all_reduce_sum(loss_trace, shard.d)
+    return {k: v.detach() for k, v in leaves.items()}, loss_trace, iters
 
 
 # ---------------------------------------------------------------------------
@@ -325,11 +336,11 @@ def make_smpl_optimizer(query_fn, project_fn, model: SMPLModel,
                  for f in dataclasses.fields(SMPLTParams)}
         pdict, l1, _ = _adam_phase(lambda p, d: loss1(p, d, env), pdict,
                                    lrs1, cfg.iter_betas, spi,
-                                   lambda s: 1.0, shard=shard)
+                                   lambda s: 1.0, shard=shard, phase="betas")
         pdict, l23, it23 = _adam_phase(
             lambda p, d: loss23(p, d, env), pdict, lrs23, n23, spi, decay23,
             cfg.smpl_rel_tol if cfg.early_stop else 0.0,
-            min23 if cfg.early_stop else -1.0, shard=shard)
+            min23 if cfg.early_stop else -1.0, shard=shard, phase="pose")
         out = SMPLTParams(**pdict), torch.cat([l1, l23])
         return out + ({"smpl": it23, "smpl_max": n23},) if report_iters \
             else out
@@ -586,30 +597,31 @@ def make_object_optimizer(query_fn, project_px,
                    ocent_target=obj_t.detach(), ctx=ctx, shard=shard)
         params, l1, _ = _adam_phase(lambda p, d: loss_obj(p, d, env), params,
                                     lrs_1, cfg.iter_obj, spi, lambda s: 1.0,
-                                    shard=shard)
+                                    shard=shard, phase="obj")
 
         env2 = dict(env, sil=sil, sil_verts=sil_verts, sil_faces=sil_faces,
                     trans_init=params["obj_t"].detach())
         params, l2, _ = _adam_phase(lambda p, d: loss_sil(p, d, env2),
                                     params, lrs_2, cfg.iter_sil, spi, decay2,
-                                    shard=shard)
+                                    shard=shard, phase="sil")
 
         env3 = dict(env, smpl_verts=smpl_verts, labels_h=torch.as_tensor(
             np.asarray(labels_h), device=obj_t.device).long())
         if cfg.collision and sdf_grid is not None:
             env3["sdf_grid"] = sdf_grid
-        labels_o, mask_h, mask_o = contact_masks(params, env3)
-        env3.update(labels_o=labels_o, mask_h=mask_h, mask_o=mask_o,
-                    nn_plans=contact_plans(smpl_verts, env3["labels_h"],
-                                           labels_o, mask_h, mask_o))
-        env3["pairs"] = chunk_pairs(
-            env3["labels_h"].expand(smpl_verts.shape[:2]), labels_o, mask_h,
-            mask_o, shard)
+        with trace.span("contact_plans"):
+            labels_o, mask_h, mask_o = contact_masks(params, env3)
+            env3.update(labels_o=labels_o, mask_h=mask_h, mask_o=mask_o,
+                        nn_plans=contact_plans(smpl_verts, env3["labels_h"],
+                                               labels_o, mask_h, mask_o))
+            env3["pairs"] = chunk_pairs(
+                env3["labels_h"].expand(smpl_verts.shape[:2]), labels_o,
+                mask_h, mask_o, shard)
         params, l3, it_j = _adam_phase(
             lambda p, d: loss_joint(p, d, env3), params, lrs_j,
             cfg.joint_max_iter, spi, decay_j,
             cfg.joint_rel_tol if cfg.early_stop else 0.0,
-            min_j if cfg.early_stop else -1.0, shard=shard)
+            min_j if cfg.early_stop else -1.0, shard=shard, phase="joint")
 
         with torch.no_grad():
             r_final = decopose_axis(params["obj_r"])

@@ -25,6 +25,7 @@ from ..core.priors import HandPrior, MahalanobisPrior
 from ..core.smpl import SMPLModel, lbs_forward
 from ..parallel.mesh import (FrameShard, all_reduce_sum, diff_sq_mean,
                              frame_mean)
+from ..utils import trace
 
 # per-angle weights for the joint-acceleration loss (22 joints x 3)
 JOINT_ACCEL_WEIGHTS = np.repeat(
@@ -139,24 +140,33 @@ def weighted_total(terms: dict, cfg: SMPLTFitConfig, decay: float):
 
 
 def _phase(loss_fn, params: SMPLTParams, lr: float, n_steps: int,
-           step_offset: int, steps_per_iter: int, active: set):
+           step_offset: int, steps_per_iter: int, active: set,
+           phase: str = "phase"):
     """n_steps Adam steps with a fresh optimizer; leaves outside `active`
-    get zeroed gradients. Returns (params, list of 0-d loss tensors)."""
+    get zeroed gradients. Returns (params, list of 0-d loss tensors).
+    Traced as smplt.phase:<phase>, each step's forward, backward and adam
+    spans under a step span, and the steps counted as adam_steps."""
     leaves = [p.detach().clone().requires_grad_(True)
               for p in params.leaves()]
     p = SMPLTParams(*leaves)
     opt = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     losses = []
-    for step in range(n_steps):
-        decay = float(((step_offset + step) // steps_per_iter) // 3)
-        opt.zero_grad(set_to_none=False)
-        loss = loss_fn(p, decay)
-        loss.backward()
-        for name, leaf in zip(_LEAVES, leaves):
-            if name not in active:
-                leaf.grad.zero_()
-        opt.step()
-        losses.append(loss.detach())
+    with trace.span(f"smplt.phase:{phase}"):
+        for step in range(n_steps):
+            with trace.span("step"):
+                decay = float(((step_offset + step) // steps_per_iter) // 3)
+                opt.zero_grad(set_to_none=False)
+                with trace.span("forward"):
+                    loss = loss_fn(p, decay)
+                with trace.span("backward"):
+                    loss.backward()
+                with trace.span("adam"):
+                    for name, leaf in zip(_LEAVES, leaves):
+                        if name not in active:
+                            leaf.grad.zero_()
+                    opt.step()
+                losses.append(loss.detach())
+            trace.count("adam_steps")
     return SMPLTParams(*[x.detach() for x in leaves]), losses
 
 
@@ -182,7 +192,7 @@ def fit_smplt(model: SMPLModel, landmarks: BodyLandmarks,
     n1 = cfg.global_iters * spi
     if not skip_global_phase:
         params, l1 = _phase(loss_fn, params, cfg.lr_global, n1, 0, spi,
-                            {"global_pose", "top_betas", "trans"})
+                            {"global_pose", "top_betas", "trans"}, "global")
         losses += l1
     n2 = (cfg.max_iters - (0 if skip_global_phase else cfg.global_iters)) \
         * spi
@@ -190,7 +200,7 @@ def fit_smplt(model: SMPLModel, landmarks: BodyLandmarks,
     # phase 2 moves everything except the hand pose (stays at GRAB mean)
     params, l2 = _phase(loss_fn, params, cfg.lr_all, n2, offset, spi,
                         {"global_pose", "body_pose", "top_betas",
-                         "other_betas", "trans"})
+                         "other_betas", "trans"}, "all")
     losses += l2
     trace = torch.stack(losses) if losses else torch.zeros(0)
     if shard is not None:

@@ -52,7 +52,6 @@ class LoopConfig:
     out_dir: str = "experiments/default"
     keep_checkpoints: int = 3
     debug_nans: bool = False        # torch.autograd.set_detect_anomaly
-    profile_steps: int = 0          # trace this many steps (torch.profiler)
 
 
 class MetricLogger:
@@ -214,25 +213,13 @@ def train_loop(state: TrainState, step_fn: Callable, train_loader: Iterable,
         return now
 
     last_saved = -1
-    prof = None
     with (torch.autograd.set_detect_anomaly(True) if cfg.debug_nans
           else contextlib.nullcontext()):
         for epoch in range(cfg.num_epochs):
             for batch in train_loader:
-                if cfg.profile_steps and state.step == 1 and prof is None:
-                    prof = torch.profiler.profile(activities=[
-                        torch.profiler.ProfilerActivity.CPU,
-                        *([torch.profiler.ProfilerActivity.CUDA]
-                          if torch.cuda.is_available() else [])])
-                    prof.start()
                 if to_device is not None:
                     batch = to_device(batch)
                 state, loss, terms = step_fn(state, batch)
-                if prof is not None and state.step >= 1 + cfg.profile_steps:
-                    prof.stop()  # profile_steps updates after the first
-                    prof.export_chrome_trace(
-                        os.path.join(cfg.out_dir, "trace.json"))
-                    prof = None
                 if state.step % 10 == 0:
                     log(state.step, loss=float(loss), epoch=epoch,
                         **{f"loss_{k}": float(v) for k, v in terms.items()})
